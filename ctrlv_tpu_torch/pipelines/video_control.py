@@ -1,0 +1,122 @@
+"""Stage-2 Box2Video pipeline: ControlNet-conditioned SVD generation.
+
+Counterpart of ``ctrlv_tpu/pipelines/video_control.py``. Every denoise step
+runs the ControlNet, then the UNet with its down and mid residuals; CFG
+uses zeroed negative conditioning for the CLIP, VAE and control latents.
+The loop is a Python loop of eager calls.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import torch
+
+from ..diffusion import EulerDiscreteScheduler, euler_step, scale_model_input
+from .common import (
+    SamplingConfig,
+    decode_latents,
+    encode_clip_image,
+    encode_vae_image,
+    encode_vae_video,
+    get_add_time_ids,
+    guidance_linspace,
+    postprocess_frames,
+)
+
+
+class StableVideoControlPipeline:
+    def __init__(self, unet, controlnet, vae, image_encoder,
+                 scheduler: Optional[EulerDiscreteScheduler] = None):
+        self.unet = unet
+        self.controlnet = controlnet
+        self.vae = vae
+        self.image_encoder = image_encoder
+        self.scheduler = scheduler or EulerDiscreteScheduler()
+
+    @torch.no_grad()
+    def __call__(
+        self,
+        image,  # (B, H, W, 3) in [-1, 1]
+        cond_images,  # (B, F, H, W, 3) frames or (B, F, h, w, 4) latents
+        generator: Optional[torch.Generator] = None,
+        guidance_minmax=None,  # (B, 2)
+        output_type: str = "np",
+        image_noise=None,  # (B, H, W, 3) standard normal; drawn if None
+        latents=None,  # (B, F, h, w, 4) standard normal; drawn if None
+        **kwargs,
+    ):
+        """(B, F, H, W, 3) frames in [0, 1], or the final latents when
+        ``output_type == "latent"``.
+
+        ``image_noise`` is the noise-augmentation draw; ``latents`` is the
+        initial draw, scaled by ``init_noise_sigma`` here as in diffusers.
+        Handing both in reproduces another sampler's draws exactly.
+        """
+        cfg = SamplingConfig(**kwargs)
+        device = image.device
+        batch = image.shape[0]
+        if guidance_minmax is None:
+            guidance_minmax = torch.tensor(
+                [[cfg.min_guidance_scale, cfg.max_guidance_scale]], dtype=torch.float32,
+                device=device,
+            ).repeat(batch, 1)
+        # As in the reference: the guidance values flow through guidance_minmax
+        # and only do_cfg is kept from the config.
+        cfg = dataclasses.replace(
+            cfg, min_guidance_scale=0.0, max_guidance_scale=2.0 if cfg.do_cfg else 1.0
+        )
+        do_cfg = cfg.do_cfg
+        sched = self.scheduler.set_timesteps(cfg.num_inference_steps, device=device)
+
+        if image_noise is None:
+            image_noise = torch.randn(
+                image.shape, generator=generator, dtype=image.dtype, device=device
+            )
+        clip_emb = encode_clip_image(self.image_encoder, image, do_cfg)
+        img_latent = encode_vae_image(
+            self.vae, image, image_noise, cfg.noise_aug_strength, do_cfg
+        )
+        image_latents = img_latent[:, None].repeat(1, cfg.num_frames, 1, 1, 1).float()
+
+        if cond_images.shape[-1] == 4:
+            cond_em = cond_images
+            if do_cfg:
+                cond_em = torch.cat([torch.zeros_like(cond_em), cond_em], dim=0)
+        else:
+            cond_em = encode_vae_video(self.vae, cond_images, do_cfg)
+
+        add_time_ids = get_add_time_ids(cfg, batch, do_cfg, device)
+        h, w = image_latents.shape[2:4]
+        shape = (batch, cfg.num_frames, h, w, self.unet.config.out_channels)
+        if latents is None:
+            latents = torch.randn(shape, generator=generator, dtype=torch.float32, device=device)
+        latents = latents.float() * sched.init_noise_sigma
+        guidance = guidance_linspace(cfg.num_frames, guidance_minmax)
+
+        for i in range(cfg.num_inference_steps):
+            sigma, sigma_next = sched.sigmas[i], sched.sigmas[i + 1]
+            t = sched.timesteps[i]
+            lat_in = torch.cat([latents] * 2) if do_cfg else latents
+            lat_in = torch.cat([scale_model_input(lat_in, sigma), image_latents], dim=-1)
+            down_res, mid_res = self.controlnet(
+                lat_in, t, clip_emb, add_time_ids, cond_em,
+                conditioning_scale=cfg.control_condition_scale,
+            )
+            pred = self.unet(
+                lat_in, t, clip_emb, add_time_ids,
+                down_block_additional_residuals=down_res,
+                mid_block_additional_residuals=mid_res,
+            ).float()
+            if do_cfg:
+                uncond, cond = pred.chunk(2, dim=0)
+                pred = uncond + guidance * (cond - uncond)
+            latents = euler_step(pred, latents, sigma, sigma_next)
+
+        if output_type == "latent":
+            return latents
+        frames = decode_latents(
+            self.vae, latents, self.vae.config.scaling_factor, cfg.decode_chunk_size
+        )
+        return postprocess_frames(frames).float()
