@@ -22,6 +22,17 @@
 //     -inf logits, rows past S are not stored.
 // Shared-memory rows are padded by 8 bf16 (16 bytes), so the 8 rows an
 // ldmatrix reads fall in different banks.
+//
+// K8: the same kernel, through an entry point of its own, replaces the Pallas
+// kernel ctrlv_tpu/ops/flash_attention.py::flash_attention (_attn_kernel),
+// the one-pass attention over (B, S, H, D) at a few hundred tokens (640 and
+// 160 in the sampler). A contiguous (B, S, H, D) tensor is the (B, S, H*D)
+// tensor read here, so the TPU kernel's transpose to (B*H, S, D) has no
+// counterpart. At (50, 640, 10, 64) a call is 52 GFLOP against 164 MB moved:
+// about 320 operations a byte, at the edge between the two bounds. Ragged
+// tiles are the common case there (160 tokens are 2.5 tiles of 64), so when
+// the last 64-row query tile would be at most half full the entry point takes
+// the instantiation with 2 warps and 32-row query tiles.
 #include "mma_utils.cuh"
 
 #include <math.h>
@@ -29,23 +40,23 @@
 namespace ctrlv {
 namespace {
 
-constexpr int kWarps = 4;
-constexpr int kBlockM = 16 * kWarps;  // query rows per block
-constexpr int kBlockN = 64;           // keys per tile
+constexpr int kBlockN = 64;  // keys per tile
 constexpr int kPad = 8;
 
-template <int D>
+// kWarps warps, 16 query rows each: kBlockM = 16 * kWarps query rows per block.
+template <int D, int kWarps>
 constexpr int smem_bytes() {
   // Q tile + two stages of K and V tiles.
-  return (kBlockM + 4 * kBlockN) * (D + kPad) * static_cast<int>(sizeof(bf16));
+  return (16 * kWarps + 4 * kBlockN) * (D + kPad) * static_cast<int>(sizeof(bf16));
 }
 
-template <int D>
+template <int D, int kWarps>
 __global__ void __launch_bounds__(kWarps * 32)
     mha_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                    const bf16* __restrict__ v, bf16* __restrict__ o, int sq, int sk, int heads,
                    float scale_log2) {
   constexpr int SROW = D + kPad;
+  constexpr int kBlockM = 16 * kWarps;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* s_q = reinterpret_cast<bf16*>(smem_raw);
   bf16* s_k = s_q + kBlockM * SROW;  // [2][kBlockN][SROW]
@@ -198,17 +209,39 @@ __global__ void __launch_bounds__(kWarps * 32)
   }
 }
 
-template <int D>
+template <int D, int kWarps>
 cudaError_t launch(const bf16* q, const bf16* k, const bf16* v, bf16* o, int batch, int sq,
                    int sk, int heads, float scale, cudaStream_t stream) {
-  constexpr int bytes = smem_bytes<D>();
-  cudaError_t err =
-      cudaFuncSetAttribute(mha_fwd_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  constexpr int bytes = smem_bytes<D, kWarps>();
+  constexpr int kBlockM = 16 * kWarps;
+  cudaError_t err = cudaFuncSetAttribute(mha_fwd_kernel<D, kWarps>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return err;
   const dim3 grid((sq + kBlockM - 1) / kBlockM, heads, batch);
   const float scale_log2 = scale * 1.4426950408889634f;
-  mha_fwd_kernel<D><<<grid, kWarps * 32, bytes, stream>>>(q, k, v, o, sq, sk, heads, scale_log2);
+  mha_fwd_kernel<D, kWarps>
+      <<<grid, kWarps * 32, bytes, stream>>>(q, k, v, o, sq, sk, heads, scale_log2);
   return cudaGetLastError();
+}
+
+// small_tiles: 32-row query tiles (2 warps) instead of 64-row ones (4 warps).
+cudaError_t dispatch(const void* q, const void* k, const void* v, void* o, int batch, int sq,
+                     int sk, int heads, int head_dim, bool small_tiles, float scale,
+                     void* stream) {
+  const auto* qp = static_cast<const bf16*>(q);
+  const auto* kp = static_cast<const bf16*>(k);
+  const auto* vp = static_cast<const bf16*>(v);
+  auto* op = static_cast<bf16*>(o);
+  auto st = static_cast<cudaStream_t>(stream);
+  if (batch < 1 || batch > 65535 || heads < 1 || heads > 65535 || sq < 1 || sk < 1)
+    return cudaErrorInvalidValue;
+  if (head_dim == 64)
+    return small_tiles ? launch<64, 2>(qp, kp, vp, op, batch, sq, sk, heads, scale, st)
+                       : launch<64, 4>(qp, kp, vp, op, batch, sq, sk, heads, scale, st);
+  if (head_dim == 128)
+    return small_tiles ? launch<128, 2>(qp, kp, vp, op, batch, sq, sk, heads, scale, st)
+                       : launch<128, 4>(qp, kp, vp, op, batch, sq, sk, heads, scale, st);
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -218,19 +251,14 @@ cudaError_t launch(const bf16* q, const bf16* k, const bf16* v, bf16* o, int bat
 // all contiguous bf16 on the current device. Returns a cudaError_t code.
 extern "C" int ctrlv_mha_fwd(const void* q, const void* k, const void* v, void* o, int batch,
                              int sq, int sk, int heads, int head_dim, float scale, void* stream) {
-  using ctrlv::bf16;
-  const auto* qp = static_cast<const bf16*>(q);
-  const auto* kp = static_cast<const bf16*>(k);
-  const auto* vp = static_cast<const bf16*>(v);
-  auto* op = static_cast<bf16*>(o);
-  auto st = static_cast<cudaStream_t>(stream);
-  if (batch > 65535 || heads > 65535 || sq < 1 || sk < 1) return cudaErrorInvalidValue;
-  switch (head_dim) {
-    case 64:
-      return ctrlv::launch<64>(qp, kp, vp, op, batch, sq, sk, heads, scale, st);
-    case 128:
-      return ctrlv::launch<128>(qp, kp, vp, op, batch, sq, sk, heads, scale, st);
-    default:
-      return cudaErrorInvalidValue;
-  }
+  return ctrlv::dispatch(q, k, v, o, batch, sq, sk, heads, head_dim, false, scale, stream);
+}
+
+// The same operands seen as (batch, s, heads, head_dim): K8's entry point.
+extern "C" int ctrlv_flash_fwd(const void* q, const void* k, const void* v, void* o, int batch,
+                               int sq, int sk, int heads, int head_dim, float scale,
+                               void* stream) {
+  const int tail = sq % 64;
+  const bool small_tiles = tail != 0 && tail <= 32;
+  return ctrlv::dispatch(q, k, v, o, batch, sq, sk, heads, head_dim, small_tiles, scale, stream);
 }

@@ -17,6 +17,17 @@
 // the padded keys get -inf logits, and the softmax is exact. As in the TPU
 // kernel, P is normalised in f32 before it is rounded to bf16. Each warp
 // writes only its head's D columns of rows < F.
+//
+// K3: the same kernel reads the frames-major layout (B*F, S, H*D), the UNet's
+// own, and replaces ctrlv_tpu/ops/mha.py::small_mha_attention_fm
+// (_small_fm_kernel). The TPU kernel transposes its (F, nb, HD) slab in VMEM
+// so that no transposed copy reaches device memory; here only the addresses
+// change: the warp of pixel (b, s) and head h finds its F rows S*H*D elements
+// apart, starting at ((b*F)*S + s)*H*D + h*D, and writes its output there.
+// Each row is still one 128- or 256-byte segment read with 16-byte loads, and
+// the 4 warps of a block still cover neighbouring heads of one pixel, so
+// every sector fetched is used; what is lost against K2 is only that a
+// warp's rows no longer share a DRAM page.
 #include "mma_utils.cuh"
 
 #include <math.h>
@@ -36,7 +47,7 @@ template <int FP, int D>
 __global__ void __launch_bounds__(kWarps * 32)
     small_mha_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                          const bf16* __restrict__ v, bf16* __restrict__ o, int n, int f, int heads,
-                         float scale_log2) {
+                         int fm_s, float scale_log2) {
   constexpr int SROW = D + kPad;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int warp = threadIdx.x / 32;
@@ -48,8 +59,12 @@ __global__ void __launch_bounds__(kWarps * 32)
   if (pair >= static_cast<long long>(n) * heads) return;  // no block-wide barrier below
   const long long pix = pair / heads;
   const int h = static_cast<int>(pair % heads);
-  const long long ld = static_cast<long long>(heads) * D;
-  const long long base = pix * f * ld + h * D;
+  const long long hd = static_cast<long long>(heads) * D;
+  // (N, F, H*D): the pixel's rows follow each other. Frames-major
+  // (B*F, S, H*D) with S = fm_s: they lie S rows apart.
+  const long long ld = fm_s > 0 ? fm_s * hd : hd;
+  const long long base =
+      (fm_s > 0 ? (pix / fm_s) * f * fm_s + pix % fm_s : pix * f) * hd + h * D;
 
   bf16* s_q = reinterpret_cast<bf16*>(smem_raw) + warp * warp_smem_elems<FP, D>();
   bf16* s_k = s_q + FP * SROW;
@@ -155,7 +170,7 @@ __global__ void __launch_bounds__(kWarps * 32)
 
 template <int FP, int D>
 cudaError_t launch(const bf16* q, const bf16* k, const bf16* v, bf16* o, int n, int f, int heads,
-                   float scale, cudaStream_t stream) {
+                   int fm_s, float scale, cudaStream_t stream) {
   constexpr int bytes = kWarps * warp_smem_elems<FP, D>() * static_cast<int>(sizeof(bf16));
   cudaError_t err = cudaFuncSetAttribute(small_mha_fwd_kernel<FP, D>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
@@ -165,31 +180,53 @@ cudaError_t launch(const bf16* q, const bf16* k, const bf16* v, bf16* o, int n, 
   if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
   const float scale_log2 = scale * 1.4426950408889634f;
   small_mha_fwd_kernel<FP, D><<<static_cast<unsigned>(blocks), kWarps * 32, bytes, stream>>>(
-      q, k, v, o, n, f, heads, scale_log2);
+      q, k, v, o, n, f, heads, fm_s, scale_log2);
   return cudaGetLastError();
 }
 
 }  // namespace
 }  // namespace ctrlv
 
-// q, k, v, o: (n, frames, heads*head_dim) contiguous bf16 on the current
-// device, 2 <= frames <= 64. Returns a cudaError_t code.
-extern "C" int ctrlv_small_mha_fwd(const void* q, const void* k, const void* v, void* o, int n,
-                                   int frames, int heads, int head_dim, float scale,
-                                   void* stream) {
-  using ctrlv::bf16;
+namespace ctrlv {
+namespace {
+
+cudaError_t dispatch(const void* q, const void* k, const void* v, void* o, long long n, int frames,
+                     int heads, int head_dim, int fm_s, float scale, void* stream) {
   const auto* qp = static_cast<const bf16*>(q);
   const auto* kp = static_cast<const bf16*>(k);
   const auto* vp = static_cast<const bf16*>(v);
   auto* op = static_cast<bf16*>(o);
   auto st = static_cast<cudaStream_t>(stream);
-  if (n < 1 || frames < 1 || frames > 64) return cudaErrorInvalidValue;
+  if (n < 1 || n > 0x7fffffffLL || frames < 1 || frames > 64 || heads < 1)
+    return cudaErrorInvalidValue;
+  const int ni = static_cast<int>(n);
   const bool wide = frames > 32;
   if (head_dim == 64)
-    return wide ? ctrlv::launch<64, 64>(qp, kp, vp, op, n, frames, heads, scale, st)
-                : ctrlv::launch<32, 64>(qp, kp, vp, op, n, frames, heads, scale, st);
+    return wide ? launch<64, 64>(qp, kp, vp, op, ni, frames, heads, fm_s, scale, st)
+                : launch<32, 64>(qp, kp, vp, op, ni, frames, heads, fm_s, scale, st);
   if (head_dim == 128)
-    return wide ? ctrlv::launch<64, 128>(qp, kp, vp, op, n, frames, heads, scale, st)
-                : ctrlv::launch<32, 128>(qp, kp, vp, op, n, frames, heads, scale, st);
+    return wide ? launch<64, 128>(qp, kp, vp, op, ni, frames, heads, fm_s, scale, st)
+                : launch<32, 128>(qp, kp, vp, op, ni, frames, heads, fm_s, scale, st);
   return cudaErrorInvalidValue;
+}
+
+}  // namespace
+}  // namespace ctrlv
+
+// q, k, v, o: (n, frames, heads*head_dim) contiguous bf16 on the current
+// device, 1 <= frames <= 64. Returns a cudaError_t code.
+extern "C" int ctrlv_small_mha_fwd(const void* q, const void* k, const void* v, void* o, int n,
+                                   int frames, int heads, int head_dim, float scale,
+                                   void* stream) {
+  return ctrlv::dispatch(q, k, v, o, n, frames, heads, head_dim, 0, scale, stream);
+}
+
+// Frames-major: q, k, v, o are (batch*frames, s, heads*head_dim) contiguous
+// bf16; attention runs over the frames of each of the batch*s pixels.
+extern "C" int ctrlv_small_mha_fm_fwd(const void* q, const void* k, const void* v, void* o,
+                                      int batch, int frames, int s, int heads, int head_dim,
+                                      float scale, void* stream) {
+  if (batch < 1 || s < 1) return cudaErrorInvalidValue;
+  return ctrlv::dispatch(q, k, v, o, static_cast<long long>(batch) * s, frames, heads, head_dim,
+                         s, scale, stream);
 }

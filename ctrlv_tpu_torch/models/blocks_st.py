@@ -19,8 +19,10 @@ def _resnet(cin: int, cout: int, temb_channels: int) -> SpatioTemporalResBlock:
     return SpatioTemporalResBlock(cin, cout, temb_channels, eps=1e-5)
 
 
-def _transformer(channels, heads, layers, cross_dim) -> TransformerSpatioTemporalModel:
-    return TransformerSpatioTemporalModel(heads, channels // heads, channels, layers, cross_dim)
+def _transformer(channels, heads, layers, cross_dim, temporal_layout) -> TransformerSpatioTemporalModel:
+    return TransformerSpatioTemporalModel(
+        heads, channels // heads, channels, layers, cross_dim, temporal_layout=temporal_layout
+    )
 
 
 class DownBlockSpatioTemporal(nn.Module):
@@ -57,6 +59,7 @@ class CrossAttnDownBlockSpatioTemporal(nn.Module):
         cross_attention_dim=1024,
         add_downsample=True,
         temb_channels=1280,
+        temporal_layout="seq",
     ):
         super().__init__()
         self.resnets = nn.ModuleList(
@@ -65,7 +68,7 @@ class CrossAttnDownBlockSpatioTemporal(nn.Module):
         )
         self.attentions = nn.ModuleList(
             [_transformer(out_channels, num_attention_heads, transformer_layers_per_block,
-                          cross_attention_dim)
+                          cross_attention_dim, temporal_layout)
              for _ in range(num_layers)]
         )
         self.downsamplers = (
@@ -93,6 +96,7 @@ class UNetMidBlockSpatioTemporal(nn.Module):
         num_attention_heads=1,
         cross_attention_dim=1024,
         temb_channels=1280,
+        temporal_layout="seq",
     ):
         super().__init__()
         self.resnets = nn.ModuleList(
@@ -100,7 +104,7 @@ class UNetMidBlockSpatioTemporal(nn.Module):
         )
         self.attentions = nn.ModuleList(
             [_transformer(in_channels, num_attention_heads, transformer_layers_per_block,
-                          cross_attention_dim)
+                          cross_attention_dim, temporal_layout)
              for _ in range(num_layers)]
         )
 
@@ -155,6 +159,7 @@ class CrossAttnUpBlockSpatioTemporal(nn.Module):
         cross_attention_dim=1024,
         add_upsample=True,
         temb_channels=1280,
+        temporal_layout="seq",
     ):
         super().__init__()
         self.resnets = nn.ModuleList(
@@ -164,7 +169,7 @@ class CrossAttnUpBlockSpatioTemporal(nn.Module):
         )
         self.attentions = nn.ModuleList(
             [_transformer(out_channels, num_attention_heads, transformer_layers_per_block,
-                          cross_attention_dim)
+                          cross_attention_dim, temporal_layout)
              for _ in range(num_layers)]
         )
         self.upsamplers = (

@@ -128,7 +128,7 @@ class CLIPVisionTransformer(nn.Module):
 
     def forward(self, pixel_values):
         x = self.encoder(self.pre_layrnorm(self.embeddings(pixel_values)))
-        return self.post_layernorm(x[:, 0])
+        return self.post_layernorm(x[:, 0].contiguous())
 
 
 class CLIPVisionModelWithProjection(nn.Module):

@@ -34,7 +34,7 @@ def down_residual_channels(cfg: UNetSTConfig) -> list:
 
 
 class ControlNetSpatioTemporal(nn.Module):
-    def __init__(self, config: UNetSTConfig = UNetSTConfig()):
+    def __init__(self, config: UNetSTConfig = UNetSTConfig(), temporal_layout: str = "seq"):
         super().__init__()
         cfg = self.config = config
         c0 = cfg.block_out_channels[0]
@@ -42,8 +42,8 @@ class ControlNetSpatioTemporal(nn.Module):
         self.control_conv_in = nn.Conv2d(cfg.in_channels // 2, c0, 3, padding=1)
         self.time_embedding = TimestepEmbedding(c0, c0 * 4)
         self.add_embedding = TimestepEmbedding(cfg.projection_class_embeddings_input_dim, c0 * 4)
-        self.down_blocks = make_down_blocks(cfg)
-        self.mid_block = make_mid_block(cfg)
+        self.down_blocks = make_down_blocks(cfg, temporal_layout)
+        self.mid_block = make_mid_block(cfg, temporal_layout)
         self.controlnet_down_blocks = nn.ModuleList(
             [nn.Conv2d(c, c, 1) for c in down_residual_channels(cfg)]
         )

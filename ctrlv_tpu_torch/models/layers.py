@@ -8,6 +8,13 @@ layers take (B, S, C).
 
 Numerics follow the JAX package: norms compute their statistics in f32 and
 return the input dtype, matmuls and convs run in the parameters' dtype.
+
+GroupNorm and LayerNorm are the kernels of ``ops/group_norm.py`` and
+``ops/layer_norm.py`` (the JAX package's ``FusedGroupNorm`` and
+``FusedLayerNorm``, which compute what its ``GroupNorm`` and
+``nn.LayerNorm`` compute); Attention routes to the kernels of ``ops/mha.py``
+and ``ops/attention.py``. ``plain_kernels()`` sends them all to their plain
+versions.
 """
 
 from __future__ import annotations
@@ -22,32 +29,26 @@ import torch.nn.functional as F
 from ..ops import mha
 from ..ops.attention import dot_product_attention
 from ..ops.geglu_ff import gelu_erf
-
-
-def group_norm(x, num_groups: int, weight, bias, eps: float):
-    """GroupNorm over (B, C, *spatial) with f32 fast-variance statistics
-    (E[x^2] - E[x]^2, clamped at 0), consecutive channel groups; returns
-    x's dtype."""
-    b, c = x.shape[:2]
-    xf = x.float().reshape(b, num_groups, -1)
-    mean = xf.mean(dim=-1, keepdim=True)
-    var = (xf.square().mean(dim=-1, keepdim=True) - mean.square()).clamp_min(0.0)
-    y = ((xf - mean) * torch.rsqrt(var + eps)).reshape(x.shape)
-    shape = (1, c) + (1,) * (x.dim() - 2)
-    y = y * weight.float().reshape(shape) + bias.float().reshape(shape)
-    return y.to(x.dtype)
+from ..ops.group_norm import group_norm, group_norm_plain
+from ..ops.layer_norm import layer_norm, layer_norm_plain
 
 
 class GroupNorm(nn.Module):
-    def __init__(self, num_groups: int, num_channels: int, eps: float = 1e-6):
+    """GroupNorm over (B, C, *spatial), contiguous, with f32 statistics and
+    an optional fused activation (``act="silu"``); returns x's dtype."""
+
+    def __init__(self, num_groups: int, num_channels: int, eps: float = 1e-6,
+                 act: Optional[str] = None):
         super().__init__()
         self.num_groups = num_groups
         self.eps = eps
+        self.act = act
         self.weight = nn.Parameter(torch.ones(num_channels))
         self.bias = nn.Parameter(torch.zeros(num_channels))
 
     def forward(self, x):
-        return group_norm(x, self.num_groups, self.weight, self.bias, self.eps)
+        fn = group_norm_plain if mha.plain_selected() else group_norm
+        return fn(x, self.weight, self.bias, self.num_groups, self.eps, self.act)
 
 
 class LayerNorm(nn.Module):
@@ -60,8 +61,8 @@ class LayerNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(dim))
 
     def forward(self, x):
-        y = F.layer_norm(x.float(), x.shape[-1:], self.weight.float(), self.bias.float(), self.eps)
-        return y.to(x.dtype)
+        fn = layer_norm_plain if mha.plain_selected() else layer_norm
+        return fn(x, self.weight, self.bias, self.eps)
 
 
 def get_timestep_embedding(
@@ -134,7 +135,10 @@ class Attention(nn.Module):
     Input (B, S, C); optional context (B, T, C_ctx) for cross-attention.
     Self-attention routes to the kernels of ``ops/mha.py`` at the same call
     sites as the JAX package: the spatial kernel at S, Sk >= 1024, the
-    temporal kernel at few frames over many rows.
+    temporal kernel at few frames over many rows, the frames-major temporal
+    kernel when ``temporal_frames`` is given. Everything else goes to
+    ``ops.attention.dot_product_attention``, whose switch decides between
+    the one-pass kernel and the plain version.
     """
 
     def __init__(
@@ -165,10 +169,14 @@ class Attention(nn.Module):
         self.to_v = nn.Linear(ctx_dim, inner, bias=qkv_bias)
         self.to_out = nn.ModuleList([nn.Linear(inner, query_dim, bias=out_bias)])
 
-    def forward(self, hidden_states, context=None):
+    def forward(self, hidden_states, context=None, temporal_frames: Optional[int] = None):
+        """``temporal_frames=F`` marks frames-major temporal self-attention:
+        hidden_states is (B*F, S, C) and attention runs over the F frames of
+        each pixel, in that layout."""
         residual = hidden_states
         if self.group_norm is not None:
-            hidden_states = self.group_norm(hidden_states.transpose(1, 2)).transpose(1, 2)
+            channels_first = hidden_states.transpose(1, 2).contiguous()
+            hidden_states = self.group_norm(channels_first).transpose(1, 2)
         b, sq = hidden_states.shape[:2]
 
         if context is not None and context.shape[1] == 1:
@@ -185,7 +193,16 @@ class Attention(nn.Module):
         inner = self.heads * self.dim_head
         scale = self.dim_head**-0.5
         plain = mha.plain_selected()
-        if mha.mha_supported(sq, sk, inner, self.heads):
+        if temporal_frames is not None:
+            if context is not None:
+                raise ValueError("frames-major temporal attention is self-attention")
+            if not plain and mha.small_mha_fm_supported(b, sq, inner, self.heads, temporal_frames):
+                out = mha.small_mha_attention_fm(q, k, v, self.heads, scale, temporal_frames)
+            else:
+                out = mha.small_mha_attention_fm_plain(
+                    q, k, v, self.heads, scale, temporal_frames
+                )
+        elif mha.mha_supported(sq, sk, inner, self.heads):
             fn = mha.mha_attention_plain if plain else mha.mha_attention
             out = fn(q, k, v, self.heads, scale)
         elif mha.small_mha_supported(b, sq, sk, inner, self.heads):
@@ -255,7 +272,14 @@ class BasicTransformerBlock(nn.Module):
 class TemporalBasicTransformerBlock(nn.Module):
     """Transformer block over the frame axis: input (B*S, F, C), pixels
     batched and frames as the sequence. ff_in with residual, self-attention
-    over frames, cross-attention to the first frame's CLIP token, FF."""
+    over frames, cross-attention to the first frame's CLIP token, FF.
+
+    With ``frames_major=F`` the input is (B*F, S, C) instead, the UNet's own
+    layout. The norms, the feed-forwards and the cross-attention work on the
+    last axis and do not care; only the self-attention needs the frame axis
+    and takes the frames-major kernel. ``encoder_hidden_states`` is then
+    batched (B*F, ...).
+    """
 
     def __init__(self, dim: int, heads: int, dim_head: int, cross_attention_dim=None):
         super().__init__()
@@ -271,9 +295,12 @@ class TemporalBasicTransformerBlock(nn.Module):
         self.norm3 = LayerNorm(dim, 1e-5)
         self.ff = FeedForward(dim)
 
-    def forward(self, hidden_states, encoder_hidden_states=None):
+    def forward(self, hidden_states, encoder_hidden_states=None,
+                frames_major: Optional[int] = None):
         hidden_states = self.ff_in(self.norm_in(hidden_states)) + hidden_states
-        hidden_states = self.attn1(self.norm1(hidden_states)) + hidden_states
+        hidden_states = (
+            self.attn1(self.norm1(hidden_states), temporal_frames=frames_major) + hidden_states
+        )
         if self.attn2 is not None:
             hidden_states = (
                 self.attn2(self.norm2(hidden_states), encoder_hidden_states) + hidden_states

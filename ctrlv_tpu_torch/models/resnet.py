@@ -15,7 +15,8 @@ from .layers import AlphaBlender, GroupNorm
 
 
 class ResnetBlock2D(nn.Module):
-    """GN-SiLU-Conv twice, time-embedding injection, 1x1 shortcut."""
+    """GN-SiLU-Conv twice (the SiLU fused into the norm), time-embedding
+    injection, 1x1 shortcut."""
 
     def __init__(
         self,
@@ -25,22 +26,22 @@ class ResnetBlock2D(nn.Module):
         eps: float = 1e-6,
     ):
         super().__init__()
-        self.norm1 = GroupNorm(32, in_channels, eps)
+        self.norm1 = GroupNorm(32, in_channels, eps, act="silu")
         self.conv1 = nn.Conv2d(in_channels, out_channels, 3, padding=1)
         self.time_emb_proj = (
             nn.Linear(temb_channels, out_channels) if temb_channels is not None else None
         )
-        self.norm2 = GroupNorm(32, out_channels, eps)
+        self.norm2 = GroupNorm(32, out_channels, eps, act="silu")
         self.conv2 = nn.Conv2d(out_channels, out_channels, 3, padding=1)
         self.conv_shortcut = (
             nn.Conv2d(in_channels, out_channels, 1) if in_channels != out_channels else None
         )
 
     def forward(self, x, temb=None):
-        h = self.conv1(F.silu(self.norm1(x)))
+        h = self.conv1(self.norm1(x))
         if temb is not None and self.time_emb_proj is not None:
             h = h + self.time_emb_proj(F.silu(temb))[:, :, None, None]
-        h = self.conv2(F.silu(self.norm2(h)))
+        h = self.conv2(self.norm2(h))
         residual = self.conv_shortcut(x) if self.conv_shortcut is not None else x
         return h + residual
 
@@ -56,12 +57,12 @@ class TemporalResnetBlock(nn.Module):
         eps: float = 1e-6,
     ):
         super().__init__()
-        self.norm1 = GroupNorm(32, in_channels, eps)
+        self.norm1 = GroupNorm(32, in_channels, eps, act="silu")
         self.conv1 = nn.Conv3d(in_channels, out_channels, (3, 1, 1), padding=(1, 0, 0))
         self.time_emb_proj = (
             nn.Linear(temb_channels, out_channels) if temb_channels is not None else None
         )
-        self.norm2 = GroupNorm(32, out_channels, eps)
+        self.norm2 = GroupNorm(32, out_channels, eps, act="silu")
         self.conv2 = nn.Conv3d(out_channels, out_channels, (3, 1, 1), padding=(1, 0, 0))
         self.conv_shortcut = (
             nn.Conv3d(in_channels, out_channels, 1) if in_channels != out_channels else None
@@ -69,10 +70,10 @@ class TemporalResnetBlock(nn.Module):
 
     def forward(self, x, temb=None):
         # x: (B, C, F, H, W); temb: (B, F, temb_channels)
-        h = self.conv1(F.silu(self.norm1(x)))
+        h = self.conv1(self.norm1(x))
         if temb is not None and self.time_emb_proj is not None:
             h = h + self.time_emb_proj(F.silu(temb)).transpose(1, 2)[:, :, :, None, None]
-        h = self.conv2(F.silu(self.norm2(h)))
+        h = self.conv2(self.norm2(h))
         residual = self.conv_shortcut(x) if self.conv_shortcut is not None else x
         return h + residual
 
@@ -107,7 +108,8 @@ class SpatioTemporalResBlock(nn.Module):
         x = self.spatial_res_block(hidden_states, temb)
         bf, c, h, w = x.shape
         b = bf // num_frames
-        x5 = x.reshape(b, num_frames, c, h, w).permute(0, 2, 1, 3, 4)
+        # contiguous: the norm kernel and the temporal conv read (B, C, F, H, W)
+        x5 = x.reshape(b, num_frames, c, h, w).permute(0, 2, 1, 3, 4).contiguous()
         temb_f = temb.reshape(b, num_frames, -1) if temb is not None else None
         xt = self.temporal_res_block(x5, temb_f)
         xt = xt.permute(0, 2, 1, 3, 4).reshape(bf, c, h, w)

@@ -1,8 +1,16 @@
 """TransformerSpatioTemporalModel: paired spatial and temporal attention.
 
-Counterpart of ``ctrlv_tpu/models/transformer_st.py`` with its "seq"
-temporal layout: the temporal block runs on (B*S, F, C), reached from the
-(B*F, S, C) token layout by a transpose pair.
+Counterpart of ``ctrlv_tpu/models/transformer_st.py`` with both of its
+temporal layouts:
+
+- "seq" (the default): the temporal block runs on (B*S, F, C), reached from
+  the (B*F, S, C) token layout by a transpose pair in device memory;
+- "frames_major": the temporal block stays in (B*F, S, C) and its frame
+  attention takes the frames-major kernel (``ops/mha.py``), so the
+  transpose pair never exists.
+
+The two compute the same function from the same weights.
+``temporal_layout`` is a plain attribute and may be set on a built model.
 """
 
 from __future__ import annotations
@@ -30,8 +38,12 @@ class TransformerSpatioTemporalModel(nn.Module):
         in_channels: int,
         num_layers: int = 1,
         cross_attention_dim: Optional[int] = 1024,
+        temporal_layout: str = "seq",
     ):
         super().__init__()
+        if temporal_layout not in ("seq", "frames_major"):
+            raise ValueError(f"temporal_layout {temporal_layout!r}")
+        self.temporal_layout = temporal_layout
         inner = num_attention_heads * attention_head_dim
         self.in_channels = in_channels
         self.norm = GroupNorm(32, in_channels, 1e-6)
@@ -64,12 +76,15 @@ class TransformerSpatioTemporalModel(nn.Module):
         batch = bf // num_frames
         seq = height * width
 
-        # Temporal cross-attention context: the first frame's tokens, one
-        # copy per pixel, (B*S, T, cross).
+        # Temporal cross-attention context: the first frame's tokens, batched
+        # as the temporal block's input is: one copy per frame, (B*F, T, cross),
+        # when frames-major, else one per pixel, (B*S, T, cross).
+        fm = self.temporal_layout == "frames_major"
         tokens = encoder_hidden_states.shape[-2]
         tc = encoder_hidden_states.reshape(batch, num_frames, tokens, -1)[:, :1]
-        time_context = tc.expand(batch, seq, tokens, tc.shape[-1]).reshape(
-            batch * seq, tokens, -1
+        copies = num_frames if fm else seq
+        time_context = tc.expand(batch, copies, tokens, tc.shape[-1]).reshape(
+            batch * copies, tokens, -1
         )
 
         residual = hidden_states
@@ -85,19 +100,24 @@ class TransformerSpatioTemporalModel(nn.Module):
         for block, tblock in zip(self.transformer_blocks, self.temporal_transformer_blocks):
             h = block(h, encoder_hidden_states)
             h_mix = h + emb
-            h_mix = (
-                h_mix.reshape(batch, num_frames, seq, inner)
-                .transpose(1, 2)
-                .reshape(batch * seq, num_frames, inner)
-            )
-            h_mix = tblock(h_mix, time_context)
-            h_mix = (
-                h_mix.reshape(batch, seq, num_frames, inner)
-                .transpose(1, 2)
-                .reshape(bf, seq, inner)
-            )
+            if fm:
+                h_mix = tblock(h_mix, time_context, frames_major=num_frames)
+            else:
+                h_mix = (
+                    h_mix.reshape(batch, num_frames, seq, inner)
+                    .transpose(1, 2)
+                    .reshape(batch * seq, num_frames, inner)
+                )
+                h_mix = tblock(h_mix, time_context)
+                h_mix = (
+                    h_mix.reshape(batch, seq, num_frames, inner)
+                    .transpose(1, 2)
+                    .reshape(bf, seq, inner)
+                )
             h = self.time_mixer(h, h_mix, image_only_indicator)
 
         h = self.proj_out(h)
         h = h.reshape(bf, height, width, channels).permute(0, 3, 1, 2)
-        return h + residual
+        # The residual comes first, so that the sum takes its contiguous NCHW
+        # layout and not the permuted view's.
+        return residual + h

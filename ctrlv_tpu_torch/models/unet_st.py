@@ -1,7 +1,7 @@
 """UNetSpatioTemporalConditionModel, the SVD video UNet.
 
 Counterpart of ``ctrlv_tpu/models/unet_st.py`` (base model; the bbox-cond
-variant is not ported yet). Input (B, F, H, W, C_in) latents, the EDM
+variant, a legacy model that no pipeline runs, is not ported yet). Input (B, F, H, W, C_in) latents, the EDM
 continuous timestep, added_time_ids (fps-1, motion bucket, noise aug), and
 optionally the ControlNet's down and mid residuals; output (B, F, H, W, 4).
 """
@@ -13,7 +13,6 @@ from typing import Tuple
 
 import torch
 import torch.nn as nn
-import torch.nn.functional as F
 
 from .blocks_st import (
     CrossAttnDownBlockSpatioTemporal,
@@ -63,8 +62,23 @@ class UNetSTConfig:
             projection_class_embeddings_input_dim=48,
         )
 
+    @classmethod
+    def micro(cls) -> "UNetSTConfig":
+        """Minimal-depth config (2 blocks, 1 layer each): every block kind
+        at a fraction of tiny()'s size."""
+        return cls(
+            down_block_types=("CrossAttnDownBlockSpatioTemporal", "DownBlockSpatioTemporal"),
+            up_block_types=("UpBlockSpatioTemporal", "CrossAttnUpBlockSpatioTemporal"),
+            block_out_channels=(32, 32),
+            num_attention_heads=(1, 1),
+            layers_per_block=1,
+            cross_attention_dim=48,
+            addition_time_embed_dim=16,
+            projection_class_embeddings_input_dim=48,
+        )
 
-def make_down_blocks(cfg: UNetSTConfig) -> nn.ModuleList:
+
+def make_down_blocks(cfg: UNetSTConfig, temporal_layout: str = "seq") -> nn.ModuleList:
     """The down path shared by the UNet and the ControlNet."""
     blocks = []
     temb = 4 * cfg.block_out_channels[0]
@@ -77,6 +91,7 @@ def make_down_blocks(cfg: UNetSTConfig) -> nn.ModuleList:
                 CrossAttnDownBlockSpatioTemporal(
                     in_ch, out_ch, cfg.layers_per_block, cfg.transformer_layers_per_block,
                     cfg.num_attention_heads[i], cfg.cross_attention_dim, add_downsample, temb,
+                    temporal_layout=temporal_layout,
                 )
             )
         elif block_type == "DownBlockSpatioTemporal":
@@ -101,13 +116,14 @@ def run_down_blocks(blocks, sample, emb, encoder_hidden_states, image_only_indic
     return sample, down_res
 
 
-def make_mid_block(cfg: UNetSTConfig) -> UNetMidBlockSpatioTemporal:
+def make_mid_block(cfg: UNetSTConfig, temporal_layout: str = "seq") -> UNetMidBlockSpatioTemporal:
     return UNetMidBlockSpatioTemporal(
         cfg.block_out_channels[-1],
         transformer_layers_per_block=cfg.transformer_layers_per_block,
         num_attention_heads=cfg.num_attention_heads[-1],
         cross_attention_dim=cfg.cross_attention_dim,
         temb_channels=4 * cfg.block_out_channels[0],
+        temporal_layout=temporal_layout,
     )
 
 
@@ -127,9 +143,11 @@ def embed_time(model, timestep, added_time_ids, batch: int, dtype):
 
 
 def to_frames_nchw(video, dtype):
-    """(B, F, H, W, C) -> (B*F, C, H, W) in ``dtype``."""
+    """(B, F, H, W, C) -> (B*F, C, H, W) in ``dtype``, contiguous: a permuted
+    view would make the convolutions answer channels-last, and the norm
+    kernel reads channels-first."""
     b, f, h, w, c = video.shape
-    return video.to(dtype).permute(0, 1, 4, 2, 3).reshape(b * f, c, h, w)
+    return video.to(dtype).permute(0, 1, 4, 2, 3).reshape(b * f, c, h, w).contiguous()
 
 
 def flatten_frames(sample, emb, encoder_hidden_states, dtype):
@@ -146,15 +164,20 @@ def flatten_frames(sample, emb, encoder_hidden_states, dtype):
 
 
 class UNetSpatioTemporalConditionModel(nn.Module):
-    def __init__(self, config: UNetSTConfig = UNetSTConfig()):
+    """``temporal_layout`` ("seq" or "frames_major") goes to every
+    TransformerSpatioTemporalModel; it is a constructor keyword and no field
+    of the config, which both packages share. The two layouts compute the
+    same function from the same weights."""
+
+    def __init__(self, config: UNetSTConfig = UNetSTConfig(), temporal_layout: str = "seq"):
         super().__init__()
         cfg = self.config = config
         c0 = cfg.block_out_channels[0]
         self.conv_in = nn.Conv2d(cfg.in_channels, c0, 3, padding=1)
         self.time_embedding = TimestepEmbedding(c0, c0 * 4)
         self.add_embedding = TimestepEmbedding(cfg.projection_class_embeddings_input_dim, c0 * 4)
-        self.down_blocks = make_down_blocks(cfg)
-        self.mid_block = make_mid_block(cfg)
+        self.down_blocks = make_down_blocks(cfg, temporal_layout)
+        self.mid_block = make_mid_block(cfg, temporal_layout)
 
         rev_ch = tuple(reversed(cfg.block_out_channels))
         rev_heads = tuple(reversed(cfg.num_attention_heads))
@@ -170,6 +193,7 @@ class UNetSpatioTemporalConditionModel(nn.Module):
                     CrossAttnUpBlockSpatioTemporal(
                         in_ch, prev_ch, out_ch, num_layers, cfg.transformer_layers_per_block,
                         rev_heads[i], cfg.cross_attention_dim, add_upsample, c0 * 4,
+                        temporal_layout=temporal_layout,
                     )
                 )
             elif block_type == "UpBlockSpatioTemporal":
@@ -179,7 +203,7 @@ class UNetSpatioTemporalConditionModel(nn.Module):
             else:
                 raise ValueError(block_type)
         self.up_blocks = nn.ModuleList(up)
-        self.conv_norm_out = GroupNorm(32, c0, 1e-5)
+        self.conv_norm_out = GroupNorm(32, c0, 1e-5, act="silu")
         self.conv_out = nn.Conv2d(c0, cfg.out_channels, 3, padding=1)
 
     def forward(
@@ -217,6 +241,6 @@ class UNetSpatioTemporalConditionModel(nn.Module):
             else:
                 sample = block(sample, res, emb, image_only_indicator)
 
-        sample = self.conv_out(F.silu(self.conv_norm_out(sample)))
+        sample = self.conv_out(self.conv_norm_out(sample))
         out = sample.reshape((batch, num_frames) + sample.shape[1:])
         return out.permute(0, 1, 3, 4, 2)

@@ -15,7 +15,6 @@ from typing import Tuple
 
 import torch
 import torch.nn as nn
-import torch.nn.functional as F
 
 from .layers import Attention, DownsampleVAE2D, GroupNorm, Upsample2D
 from .resnet import ResnetBlock2D, SpatioTemporalResBlock
@@ -47,10 +46,10 @@ def _vae_attention(c: int, head_dim: int) -> Attention:
 
 
 def _attend(attn: Attention, x):
-    """Apply a token attention to (B, C, H, W)."""
+    """Apply a token attention to (B, C, H, W); returns it contiguous."""
     b, c, h, w = x.shape
     tokens = attn(x.permute(0, 2, 3, 1).reshape(b, h * w, c))
-    return tokens.reshape(b, h, w, c).permute(0, 3, 1, 2)
+    return tokens.reshape(b, h, w, c).permute(0, 3, 1, 2).contiguous()
 
 
 class DownEncoderBlock2D(nn.Module):
@@ -103,7 +102,7 @@ class Encoder(nn.Module):
             )
         self.down_blocks = nn.ModuleList(blocks)
         self.mid_block = UNetMidBlock2D(out_ch)
-        self.conv_norm_out = GroupNorm(32, out_ch, 1e-6)
+        self.conv_norm_out = GroupNorm(32, out_ch, 1e-6, act="silu")
         self.conv_out = nn.Conv2d(out_ch, 2 * cfg.latent_channels, 3, padding=1)
 
     def forward(self, x):
@@ -111,7 +110,7 @@ class Encoder(nn.Module):
         for block in self.down_blocks:
             x = block(x)
         x = self.mid_block(x)
-        return self.conv_out(F.silu(self.conv_norm_out(x)))
+        return self.conv_out(self.conv_norm_out(x))
 
 
 def _st_resnet(cin, cout) -> SpatioTemporalResBlock:
@@ -166,7 +165,7 @@ class TemporalDecoder(nn.Module):
             )
             ch = out_ch
         self.up_blocks = nn.ModuleList(blocks)
-        self.conv_norm_out = GroupNorm(32, chans[0], 1e-6)
+        self.conv_norm_out = GroupNorm(32, chans[0], 1e-6, act="silu")
         self.conv_out = nn.Conv2d(chans[0], cfg.out_channels, 3, padding=1)
         self.time_conv_out = nn.Conv3d(
             cfg.out_channels, cfg.out_channels, (3, 1, 1), padding=(1, 0, 0)
@@ -180,7 +179,7 @@ class TemporalDecoder(nn.Module):
         x = self.mid_block(self.conv_in(z), image_only_indicator)
         for block in self.up_blocks:
             x = block(x, image_only_indicator)
-        x = self.conv_out(F.silu(self.conv_norm_out(x)))
+        x = self.conv_out(self.conv_norm_out(x))
         _, c, h, w = x.shape
         xt = x.reshape(batch, num_frames, c, h, w).permute(0, 2, 1, 3, 4)
         xt = self.time_conv_out(xt)
@@ -201,11 +200,12 @@ class AutoencoderKLTemporalDecoder(nn.Module):
 
     def encode(self, x):
         """(B, H, W, 3) -> mode latents (B, h, w, 4), without scaling_factor."""
-        moments = self.quant_conv(self.encoder(x.to(self.dtype).permute(0, 3, 1, 2)))
+        # contiguous NCHW: a permuted view would make the convs answer channels-last
+        moments = self.quant_conv(self.encoder(x.to(self.dtype).permute(0, 3, 1, 2).contiguous()))
         mean = moments[:, : self.config.latent_channels]
         return mean.permute(0, 2, 3, 1)
 
     def decode(self, z, num_frames: int = 1):
         """(B*F, h, w, 4) -> (B*F, H, W, 3)."""
-        out = self.decoder(z.to(self.dtype).permute(0, 3, 1, 2), num_frames)
+        out = self.decoder(z.to(self.dtype).permute(0, 3, 1, 2).contiguous(), num_frames)
         return out.permute(0, 2, 3, 1)

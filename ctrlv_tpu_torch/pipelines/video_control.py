@@ -4,35 +4,44 @@ Counterpart of ``ctrlv_tpu/pipelines/video_control.py``. Every denoise step
 runs the ControlNet, then the UNet with its down and mid residuals; CFG
 uses zeroed negative conditioning for the CLIP, VAE and control latents.
 The loop is a Python loop of eager calls.
+
+The pipeline runs on the card: ``device=None`` means "cuda" and raises where
+there is none; ``device="cpu"`` is what the CPU tests pass. The constructor
+moves the modules there and ``__call__`` moves its inputs there.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Optional, Union
 
 import torch
 
 from ..diffusion import EulerDiscreteScheduler, euler_step, scale_model_input
 from .common import (
     SamplingConfig,
+    check_generator,
     decode_latents,
+    default_guidance,
     encode_clip_image,
     encode_vae_image,
     encode_vae_video,
     get_add_time_ids,
     guidance_linspace,
     postprocess_frames,
+    resolve_device,
 )
 
 
 class StableVideoControlPipeline:
     def __init__(self, unet, controlnet, vae, image_encoder,
-                 scheduler: Optional[EulerDiscreteScheduler] = None):
-        self.unet = unet
-        self.controlnet = controlnet
-        self.vae = vae
-        self.image_encoder = image_encoder
+                 scheduler: Optional[EulerDiscreteScheduler] = None,
+                 device: Union[str, torch.device, None] = None):
+        self.device = resolve_device(device)
+        self.unet = unet.to(self.device)
+        self.controlnet = controlnet.to(self.device)
+        self.vae = vae.to(self.device)
+        self.image_encoder = image_encoder.to(self.device)
         self.scheduler = scheduler or EulerDiscreteScheduler()
 
     @torch.no_grad()
@@ -55,13 +64,13 @@ class StableVideoControlPipeline:
         Handing both in reproduces another sampler's draws exactly.
         """
         cfg = SamplingConfig(**kwargs)
-        device = image.device
+        device = self.device
+        check_generator(generator, device)
+        image, cond_images = image.to(device), cond_images.to(device)
         batch = image.shape[0]
         if guidance_minmax is None:
-            guidance_minmax = torch.tensor(
-                [[cfg.min_guidance_scale, cfg.max_guidance_scale]], dtype=torch.float32,
-                device=device,
-            ).repeat(batch, 1)
+            guidance_minmax = default_guidance(cfg, batch, device)
+        guidance_minmax = guidance_minmax.to(device)
         # As in the reference: the guidance values flow through guidance_minmax
         # and only do_cfg is kept from the config.
         cfg = dataclasses.replace(
@@ -76,7 +85,7 @@ class StableVideoControlPipeline:
             )
         clip_emb = encode_clip_image(self.image_encoder, image, do_cfg)
         img_latent = encode_vae_image(
-            self.vae, image, image_noise, cfg.noise_aug_strength, do_cfg
+            self.vae, image, image_noise.to(device), cfg.noise_aug_strength, do_cfg
         )
         image_latents = img_latent[:, None].repeat(1, cfg.num_frames, 1, 1, 1).float()
 
@@ -92,7 +101,7 @@ class StableVideoControlPipeline:
         shape = (batch, cfg.num_frames, h, w, self.unet.config.out_channels)
         if latents is None:
             latents = torch.randn(shape, generator=generator, dtype=torch.float32, device=device)
-        latents = latents.float() * sched.init_noise_sigma
+        latents = latents.to(device).float() * sched.init_noise_sigma
         guidance = guidance_linspace(cfg.num_frames, guidance_minmax)
 
         for i in range(cfg.num_inference_steps):
@@ -117,6 +126,7 @@ class StableVideoControlPipeline:
         if output_type == "latent":
             return latents
         frames = decode_latents(
-            self.vae, latents, self.vae.config.scaling_factor, cfg.decode_chunk_size
+            self.vae, latents, self.vae.config.scaling_factor, cfg.decode_chunk_size,
+            max_frames_per_call=cfg.max_decode_frames,
         )
         return postprocess_frames(frames).float()

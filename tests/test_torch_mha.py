@@ -97,8 +97,9 @@ def test_small_mha_gate(n, f, hd, heads, expect):
 
 def test_plain_attention_switch_is_scoped():
     assert not mha.plain_selected()
-    with mha.plain_attention():
+    with pytest.raises(RuntimeError), mha.plain_kernels():
         assert mha.plain_selected()
+        raise RuntimeError("leaves the block by an exception")
     assert not mha.plain_selected()
 
 
@@ -176,7 +177,12 @@ def test_gelu_routes_by_dtype():
 def test_import_leaves_jax_and_flax_out():
     code = (
         "import sys, ctrlv_tpu_torch, ctrlv_tpu_torch.models, ctrlv_tpu_torch.pipelines, "
-        "ctrlv_tpu_torch.convert, ctrlv_tpu_torch.ops; "
+        "ctrlv_tpu_torch.convert, ctrlv_tpu_torch.ops, ctrlv_tpu_torch.metrics.iou, "
+        "ctrlv_tpu_torch.ops._launch, ctrlv_tpu_torch.ops._build, ctrlv_tpu_torch.ops.attention, "
+        "ctrlv_tpu_torch.ops.group_norm, ctrlv_tpu_torch.ops.layer_norm, ctrlv_tpu_torch.ops.mha, "
+        "ctrlv_tpu_torch.pipelines.common, ctrlv_tpu_torch.pipelines.overall, "
+        "ctrlv_tpu_torch.pipelines.video_control, ctrlv_tpu_torch.pipelines.video_diffusion, "
+        "ctrlv_tpu_torch.models.transformer_st, ctrlv_tpu_torch.diffusion; "
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'flax', 'ctrlv_tpu')); "
         "print(bad); sys.exit(1 if bad else 0)"
     )

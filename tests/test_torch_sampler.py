@@ -53,6 +53,7 @@ def pipes():
         load(AutoencoderKLTemporalDecoder(VAEConfig.tiny()), m["vae_params"]),
         load(CLIPVisionModelWithProjection(CLIPVisionConfig.tiny()), m["clip_params"],
              "image_encoder"),
+        device="cpu",
     )
     return jax_pipe, port_pipe
 
