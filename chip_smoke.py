@@ -2,8 +2,9 @@
 
     python3 chip_smoke.py
 
-Drives the port's two serving paths at the full SVD-XT width with seeded
-random bf16 weights, through its six hand-written CUDA kernels:
+Drives the port's two serving paths and its ControlNet training step at the
+full SVD-XT width with seeded random bf16 weights, through its seven
+hand-written CUDA kernels:
 
 1. device: the card's name and power limit, torch and CUDA versions, the
    TF32 switches;
@@ -13,18 +14,27 @@ random bf16 weights, through its six hand-written CUDA kernels:
    paths give it (and at ragged shapes): max abs error, and CUDA-event times
    of the kernel, its plain version and the one PyTorch library call that
    computes the same function, beside the least time the card could take;
+   then each kernel under autograd at a shape of the training step: its
+   output against the plain version's, and its gradient through the wrapper
+   against the gradient through the function it recomputes with alone;
 4. small: the Box2Video sampler and the overall pipeline at a small config
    that still routes the kernels (head dim 64, 1024 latent tokens), in bf16
    on the card against the same weights and draws in f32 on the CPU;
 5. step: one full-width ControlNet+UNet denoise step with all kernels, with
    each of K3, K4, K5, K8 switched off in turn, with K4 on its split path
-   only, and with all plain;
+   only, with K6 (off by default) switched on, and with all plain;
 6. sampler: two Box2Video requests: 25 frames at 512x320, CFG 1 -> 3, 25
    Euler steps, decode chunk 8, synthetic bbox frames;
 7. overall: one two-stage request: five stage-1 candidates in one batch
    (30 steps, frames-major UNet), cleanup and IoU select on the card, then
    Box2Video on the winner (25 steps). The result's keys, shapes and ranges
-   and every kernel's launch count are checked.
+   and every kernel's launch count are checked;
+8. train: the ControlNet training step on one clip of 25 frames at 512x320
+   ("seq" layout, block checkpointing, encode chunk 5, AdamW with a bf16
+   first moment): a warm-up micro-step, two optimizer updates at
+   accumulation 2 with K6 on, then one micro-step each with K6 on, K6 off
+   and all plain from the same parameters and draws. Loss, gradients, which
+   parameters moved and when, and every kernel's launch count are checked.
 
 ``python3 chip_smoke.py --profile [DIR]`` instead builds the models and
 prints one step's device time by kind of kernel (torch.profiler; the table
@@ -62,12 +72,20 @@ from ctrlv_tpu_torch.models import (  # noqa: E402
 )
 from ctrlv_tpu_torch.models import layers  # noqa: E402
 from ctrlv_tpu_torch.models.transformer_st import TransformerSpatioTemporalModel  # noqa: E402
-from ctrlv_tpu_torch.ops import _build, _launch, attention, group_norm, layer_norm, mha  # noqa: E402
+from ctrlv_tpu_torch.ops import (  # noqa: E402
+    _build, _launch, attention, geglu_ff, group_norm, layer_norm, mha,
+)
 from ctrlv_tpu_torch.pipelines import (  # noqa: E402
     GUIDANCE_PAIRS,
     OverallPipeline,
     StableVideoControlPipeline,
     VideoDiffusionPipeline,
+)
+from ctrlv_tpu_torch.train import (  # noqa: E402
+    MultiSteps,
+    init_train_state,
+    make_controlnet_train_step,
+    make_optimizer,
 )
 
 H, W, FRAMES, CHUNK = 320, 512, 25, 8
@@ -86,6 +104,15 @@ PEAK_BYTES, PEAK_BF16, PEAK_F32 = 3.35e12, 989e12, 67e12
 # kernels sum in another order, and the output itself is bf16 (ulp 2^-8 relative).
 KERNEL_TOL = 1e-2
 STEP_TOL = 5e-2  # relative L2 of the step's prediction, kernels vs plain
+# A gradient through a wrapper is the gradient of the plain version at the
+# same inputs: relative L2, a few bf16 ulps of reduction order.
+GRAD_TOL = 1e-2
+# The training micro-step, kernels against all plain, from the same parameters
+# and draws: bf16 activations through 40-odd checkpointed layers forward and
+# back, each kernel a few bf16 ulps from its plain version; the loss relative,
+# the gradients in relative L2 over all ControlNet parameters.
+TRAIN_LOSS_TOL, TRAIN_GRAD_TOL = 5e-2, 1e-1
+ENCODE_CHUNK, ACCUM = 5, 2
 # Small sampler, card (bf16) vs CPU (f32), on frames in [0, 1]: mean and max
 # abs. bf16 alone moves them by ~0.005 and ~0.035 at this config.
 SMALL_TOL = (0.02, 0.15)
@@ -121,8 +148,12 @@ KERNELS = {
         name="flash_attention", route="cuda", source="ctrlv_tpu_torch/csrc/mha.cu",
         replaces="ctrlv_tpu/ops/flash_attention.py:83",
     ),
+    "geglu_ff": dict(
+        name="geglu_ff", route="cuda", source="ctrlv_tpu_torch/csrc/geglu_ff.cu",
+        replaces="ctrlv_tpu/ops/geglu_ff.py:226",
+    ),
 }
-# (kernel, shapes and options, timed: a shape of the two serving paths).
+# (kernel, shapes and options, timed: a shape of one of the three paths).
 # Attention: q is (B, Sq, H*D) [flash: (B, Sq, H, D)], k and v have sk rows.
 # A batch of 50 is the Box2Video step (CFG 2 x 25 frames), 250 the stage-1
 # step (2 x 5 candidates x 25 frames); the step phase's frames-major variant
@@ -174,6 +205,49 @@ KERNEL_CASES = [
     ("layer_norm", dict(shape=(40000, 1280)), True),
     ("layer_norm", dict(shape=(10000, 1280)), True),  # mid block, 40 tokens a frame
     ("layer_norm", dict(shape=(257, 1280)), False),  # CLIP's rows: an odd count
+    # K6, rows x width (inner = 4 x width): the training micro-step (1 x 25
+    # frames), the Box2Video step, stage 1; then the same with the LayerNorm in front.
+    ("geglu_ff", dict(shape=(64000, 320)), True),
+    ("geglu_ff", dict(shape=(16000, 640)), True),
+    ("geglu_ff", dict(shape=(128000, 320)), True),
+    ("geglu_ff", dict(shape=(32000, 640)), True),
+    ("geglu_ff", dict(shape=(640000, 320)), True),
+    ("geglu_ff", dict(shape=(64000, 320), ln=True), True),
+    ("geglu_ff", dict(shape=(16000, 640), ln=True), True),
+    ("geglu_ff", dict(shape=(128000, 320), ln=True), True),
+    ("geglu_ff", dict(shape=(32000, 640), ln=True), True),
+    ("geglu_ff", dict(shape=(1001, 320)), False),  # ragged rows: 15 blocks and 41 rows
+    ("geglu_ff", dict(shape=(999, 640), ln=True), False),
+    # The training micro-step (one clip: a batch of 25 frames, "seq" layout)
+    # for the older kernels. K2 runs at the two levels with 256 pixels or more;
+    # the VAE encoder takes chunks of 5 frames and the first frame alone.
+    ("mha", dict(shape=(25, 2560, 320), heads=5), True),
+    ("small_mha", dict(shape=(2560, 25, 320), heads=5), True),
+    ("small_mha", dict(shape=(640, 25, 640), heads=10), True),
+    ("flash", dict(shape=(25, 640, 10, 64)), True),
+    ("flash", dict(shape=(25, 160, 20, 64)), True),
+    ("group_norm", dict(shape=(25, 320, 40, 64), act="silu"), True),
+    ("group_norm", dict(shape=(25, 320, 40, 64), act=None), True),
+    ("group_norm", dict(shape=(25, 1280, 20, 32), act="silu"), True),
+    ("group_norm", dict(shape=(25, 2560, 5, 8), act="silu"), True),
+    ("group_norm", dict(shape=(1, 320, 25, 40, 64), act="silu"), True),  # temporal ResBlock
+    ("group_norm", dict(shape=(5, 128, 320, 512), act="silu"), True),
+    ("group_norm", dict(shape=(1, 128, 320, 512), act="silu"), True),
+    ("layer_norm", dict(shape=(64000, 320)), True),
+    ("layer_norm", dict(shape=(16000, 640)), True),
+    ("layer_norm", dict(shape=(4000, 1280)), True),
+    ("layer_norm", dict(shape=(1000, 1280)), True),  # mid block
+]
+# One case a kernel for the gradient check: a shape of the training micro-step.
+GRAD_CASES = [
+    ("mha", dict(shape=(25, 2560, 320), heads=5)),
+    ("small_mha", dict(shape=(2560, 25, 320), heads=5)),
+    ("small_mha_fm", dict(shape=(25, 2560, 320), heads=5, frames=25)),
+    ("flash", dict(shape=(25, 640, 10, 64))),
+    ("group_norm", dict(shape=(25, 320, 40, 64), act="silu")),
+    ("layer_norm", dict(shape=(64000, 320))),
+    ("geglu_ff", dict(shape=(64000, 320))),
+    ("geglu_ff", dict(shape=(16000, 640), ln=True)),
 ]
 # Launches of the attention kernels in one forward at full width: K1 at the
 # 2560-token level; K8 at 640 and 160 tokens; the temporal kernel at the three
@@ -239,12 +313,35 @@ def phase_build() -> None:
 
 
 def make_case(kind: str, spec: dict, gen):
-    """(kernel, plain, library) closures over fresh inputs on the card, and
-    the bytes the function must move and the operations it does."""
+    """(kernel, plain, library) closures over fresh inputs on the card, the
+    bytes the function must move, the operations it does and their peak rate,
+    and the case's functions of explicit operands, for the gradient check."""
     def randn(shape):
         return torch.randn(shape, generator=gen, device=DEVICE, dtype=torch.bfloat16)
 
     shape = spec["shape"]
+    if kind == "geglu_ff":
+        m, c = shape
+        inner, ln = 4 * c, spec.get("ln", False)
+        ops = [randn((m, c)), randn((2 * inner, c)) * c**-0.5, 0.1 * randn((2 * inner,)),
+               randn((c, inner)) * inner**-0.5, 0.1 * randn((c,))]
+        nbytes = 2 * (2 * m * c + 3 * c * inner + 2 * inner + c)
+        if ln:
+            gamma = (1.0 + 0.2 * torch.randn(c, generator=gen, device=DEVICE)).bfloat16()
+            ops = [1.5 * ops[0] + 0.3, gamma, 0.2 * randn((c,))] + ops[1:]
+            nbytes += 2 * 2 * c
+            fn, fn_plain, fn_back = (geglu_ff.geglu_ff_ln, geglu_ff.geglu_ff_ln_plain,
+                                     geglu_ff.geglu_ff_ln_unfused)
+
+            def fn_lib(x, g, b, *rest):  # the unfused arithmetic behind torch's LayerNorm
+                return geglu_ff.geglu_ff_unfused(F.layer_norm(x, (c,), g, b, 1e-5), *rest)
+        else:
+            fn, fn_plain = geglu_ff.geglu_ff, geglu_ff.geglu_ff_plain
+            # two library products with the tanh gelu and the mul between
+            fn_lib = fn_back = geglu_ff.geglu_ff_unfused
+        closures = [lambda f=f: f(*ops) for f in (fn, fn_plain, fn_lib)]
+        # the gradient recomputes through the unfused arithmetic
+        return (*closures, nbytes, 6 * m * c * inner, PEAK_BF16, (fn, fn_back, ops))
     if kind in ("mha", "small_mha", "small_mha_fm", "flash"):
         if kind == "flash":
             b, sq, heads, d = shape
@@ -267,11 +364,15 @@ def make_case(kind: str, spec: dict, gen):
                 return x.view(b // f, f, sq, heads, d).permute(0, 2, 3, 1, 4)
 
             lib = lambda: F.scaled_dot_product_attention(view(q), view(k), view(v), scale=scale)  # noqa: E731
+            fns = (lambda *t: mha.small_mha_attention_fm(*t, heads, scale, f),
+                   lambda *t: mha.small_mha_attention_fm_plain(*t, heads, scale, f))
         else:
             flops = 4 * b * sq * sk * heads * d
             if kind == "flash":
                 kern = lambda: attention.flash_attention(q, k, v, scale)  # noqa: E731
                 plain = lambda: attention.flash_attention_plain(q, k, v, scale)  # noqa: E731
+                fns = (lambda *t: attention.flash_attention(*t, scale),
+                       lambda *t: attention.flash_attention_plain(*t, scale))
             else:
                 fn, fn_plain = {
                     "mha": (mha.mha_attention, mha.mha_attention_plain),
@@ -279,12 +380,13 @@ def make_case(kind: str, spec: dict, gen):
                 }[kind]
                 kern = lambda: fn(q, k, v, heads, scale)  # noqa: E731
                 plain = lambda: fn_plain(q, k, v, heads, scale)  # noqa: E731
+                fns = (lambda *t: fn(*t, heads, scale), lambda *t: fn_plain(*t, heads, scale))
 
             def view(x):  # -> (B, H, S, D), a view
                 return x.view(b, x.shape[1], heads, d).transpose(1, 2)
 
             lib = lambda: F.scaled_dot_product_attention(view(q), view(k), view(v), scale=scale)  # noqa: E731
-        return kern, plain, lib, nbytes, flops, PEAK_BF16
+        return kern, plain, lib, nbytes, flops, PEAK_BF16, (*fns, [q, k, v])
 
     x = 1.5 * randn(shape) + 0.3
     c = shape[1] if kind == "group_norm" else shape[-1]
@@ -301,12 +403,16 @@ def make_case(kind: str, spec: dict, gen):
             return F.silu(y) if act == "silu" else y
 
         flops = (12 if act == "silu" else 8) * x.numel()
+        fns = (lambda *t: group_norm.group_norm(*t, groups, 1e-5, act),
+               lambda *t: group_norm.group_norm_plain(*t, groups, 1e-5, act))
     else:
         kern = lambda: layer_norm.layer_norm(x, weight, bias, 1e-5)  # noqa: E731
         plain = lambda: layer_norm.layer_norm_plain(x, weight, bias, 1e-5)  # noqa: E731
         lib = lambda: F.layer_norm(x, (c,), weight, bias, 1e-5)  # noqa: E731
         flops = 8 * x.numel()
-    return kern, plain, lib, nbytes, flops, PEAK_F32
+        fns = (lambda *t: layer_norm.layer_norm(*t, 1e-5),
+               lambda *t: layer_norm.layer_norm_plain(*t, 1e-5))
+    return kern, plain, lib, nbytes, flops, PEAK_F32, (*fns, [x, weight, bias])
 
 
 def compare(out, ref):
@@ -340,7 +446,7 @@ def phase_kernels() -> dict:
     results = {k: {key: [] for key in keys} for k in KERNELS}
     gen = torch.Generator(device=DEVICE).manual_seed(0)
     for kind, spec, timed in KERNEL_CASES:
-        kern, plain, lib, nbytes, flops, rate = make_case(kind, spec, gen)
+        kern, plain, lib, nbytes, flops, rate, _ = make_case(kind, spec, gen)
         before = _launch.LAUNCHES[kind]
         out, ref = kern(), plain()
         torch.cuda.synchronize()
@@ -373,7 +479,64 @@ def phase_kernels() -> dict:
             fail(f"{kind} at {spec} disagrees with its plain version: {err}")
         del out, ref, kern, plain, lib
     torch.cuda.empty_cache()
+    # A width the gate refuses takes the unfused path in the model; forced, it raises.
+    c, inner = 1280, 5120
+    if geglu_ff._plan(4000, c, inner, c, torch.bfloat16) is not None:
+        fail("K6's gate admits C = 1280")
+    zeros = lambda *shape: torch.zeros(shape, device=DEVICE, dtype=torch.bfloat16)  # noqa: E731
+    try:
+        geglu_ff.geglu_ff(zeros(64, c), zeros(2 * inner, c), zeros(2 * inner), zeros(c, inner),
+                          zeros(c))
+    except ValueError as exc:
+        print(f"[kernels] geglu_ff at C = 1280, which its gate refuses, raises when forced: {exc}")
+    else:
+        fail("K6 did not raise on a shape its gate refuses")
     return results
+
+
+def phase_grads() -> None:
+    """Each kernel under autograd at a shape of the training micro-step: the
+    wrapper's output against the plain version's, and the gradient of
+    sum(out * r) through the wrapper (kernel forward, recompute backward)
+    against the same through the function it recomputes with alone: the
+    plain version, for K6 the unfused arithmetic (tanh gelu, bf16 products),
+    as the JAX package's custom VJP has it."""
+    gen = torch.Generator(device=DEVICE).manual_seed(1)
+    for kind, spec in GRAD_CASES:
+        _, plain, *_, (fn, fn_back, ops) = make_case(kind, spec, gen)
+        back_name = "the unfused arithmetic" if kind == "geglu_ff" else "the plain version"
+
+        def grads_of(f):
+            ins = [t.detach().clone().requires_grad_(True) for t in ops]
+            out = f(*ins)
+            if not out.requires_grad:
+                fail(f"{kind}: the output carries no gradient")
+            return out, torch.autograd.grad((out.float() * r).sum(), ins)
+
+        r = torch.randn(spec["shape"], generator=gen, device=DEVICE)
+        before = _launch.LAUNCHES[kind]
+        out, grads = grads_of(fn)
+        if _launch.LAUNCHES[kind] != before + 1:
+            fail(f"{kind} at {spec} did not launch its kernel under autograd")
+        with torch.no_grad():
+            err, within = compare(out.detach(), plain())
+        _, ref = grads_of(fn_back)
+        torch.cuda.synchronize()
+        rels = []
+        for g, g_ref in zip(grads, ref):
+            rels.append(((g.float() - g_ref.float()).norm() / g_ref.float().norm()).item())
+            if g.shape != g_ref.shape or not bool(torch.isfinite(g).all()):
+                fail(f"{kind}: gradient of shape {tuple(g.shape)} is not finite")
+        print(f"[grads] {kind} {spec}: forward under autograd vs the plain version "
+              f"max_abs_err={err:.3e} tol={KERNEL_TOL}*(1+|plain|) within={within}; rel_l2 of "
+              f"the gradients of {len(ops)} operands against {back_name}'s "
+              f"{', '.join(f'{x:.2e}' for x in rels)} (tol {GRAD_TOL})", flush=True)
+        if not (bool(torch.isfinite(out).all()) and within):
+            fail(f"{kind} at {spec} under autograd disagrees with its plain version: {err}")
+        if max(rels) > GRAD_TOL:
+            fail(f"{kind}: the wrapper's gradient differs from {back_name}'s: {rels}")
+        del out, grads, ref, ops, plain, fn, fn_back
+    torch.cuda.empty_cache()
 
 
 @torch.no_grad()
@@ -430,6 +593,14 @@ def count_modules(net, cls) -> int:
     return sum(isinstance(m, cls) for m in net.modules())
 
 
+def count_routed_ff(net) -> int:
+    """Feed-forwards of ``net`` whose width K6's gate admits."""
+    return sum(isinstance(m, layers.FeedForward)
+               and geglu_ff._plan(1, m.net[2].in_features // 4, m.net[2].in_features,
+                                  m.net[2].out_features, torch.bfloat16) is not None
+               for m in net.modules())
+
+
 def decode_calls(frames: int, chunk: int, max_frames) -> int:
     """Calls of the VAE decoder that decode_latents makes for one batch."""
     n_full, rem = divmod(frames, chunk)
@@ -480,9 +651,10 @@ def make_step(models):
 
 @torch.no_grad()
 def phase_step(models) -> None:
-    """One full-width ControlNet+UNet step: all six kernels' worth (the
-    frames-major layout puts K3 in K2's place), each newer kernel switched
-    off in turn, and all plain. In turns, forwards and backwards."""
+    """One full-width ControlNet+UNet step: all six default kernels' worth
+    (the frames-major layout puts K3 in K2's place), each newer kernel
+    switched off in turn, K6 (off by default) switched on, and all plain. In
+    turns, forwards and backwards."""
     step, h, w = make_step(models)
     nets = (models["ctrl"], models["unet"])
 
@@ -494,6 +666,7 @@ def phase_step(models) -> None:
         group_norm.set_fused_group_norm(variant != "K4 off")
         layer_norm.set_fused_layer_norm(variant != "K5 off")
         attention.set_attention_impl("xla" if variant == "K8 off" else "auto")
+        geglu_ff.set_fused_geglu_ff(variant == "K6 on")
         try:
             if variant == "all plain":
                 with _launch.plain_kernels():
@@ -504,8 +677,10 @@ def phase_step(models) -> None:
             group_norm.set_fused_group_norm(True)
             layer_norm.set_fused_layer_norm(True)
             attention.set_attention_impl("auto")
+            geglu_ff.set_fused_geglu_ff(False)
 
-    variants = ("all kernels", "K3 off", "K4 off", "K4 split", "K5 off", "K8 off", "all plain")
+    variants = ("all kernels", "K3 off", "K4 off", "K4 split", "K5 off", "K8 off", "K6 on",
+                "all plain")
     _launch.reset_launch_counts()
     preds = {v: run(v, step) for v in ("all kernels", "all plain")}
     torch.cuda.synchronize()
@@ -514,6 +689,15 @@ def phase_step(models) -> None:
                                {"ctrl": ("small_mha_fm", False), "unet": ("small_mha_fm", False)})
     if counts != expect:
         fail(f"one step launched {counts}, expected {expect}")
+    # K6 on: the same launches plus one for every feed-forward its gate admits
+    _launch.reset_launch_counts()
+    preds["K6 on"] = run("K6 on", step)
+    torch.cuda.synchronize()
+    counts_k6 = dict(_launch.LAUNCHES)
+    expect["geglu_ff"] = count_routed_ff(models["ctrl"]) + count_routed_ff(models["unet"])
+    if counts_k6 != expect or not expect["geglu_ff"]:
+        fail(f"one step with K6 on launched {counts_k6}, expected {expect}")
+    rel_k6 = ((preds["K6 on"] - preds["all plain"]).norm() / preds["all plain"].norm()).item()
 
     samples = {v: [] for v in variants}
     for order in (variants, variants[::-1]):
@@ -530,8 +714,11 @@ def phase_step(models) -> None:
     print(f"[step] all kernels vs all plain: rel_l2={rel:.3e} (tol {STEP_TOL}) "
           f"max_abs_err={err:.3e} |pred|max={pred_plain.abs().max().item():.3e}; "
           f"launches {counts}", flush=True)
-    if not (torch.isfinite(pred).all() and rel <= STEP_TOL):
-        fail(f"kernel step differs from the plain step: rel_l2 {rel}")
+    print(f"[step] K6 on vs all plain: rel_l2={rel_k6:.3e}; {counts_k6['geglu_ff']} launches of "
+          f"geglu_ff a step (the feed-forwards at C = 320 and 640; C = 1280 by the gate to the "
+          f"unfused path)", flush=True)
+    if not (torch.isfinite(pred).all() and rel <= STEP_TOL and rel_k6 <= STEP_TOL):
+        fail(f"kernel step differs from the plain step: rel_l2 {rel}, with K6 {rel_k6}")
 
 
 @torch.no_grad()
@@ -611,7 +798,7 @@ def phase_small_reference() -> None:
           f"{res['best_guidance']} vs {res_ref['best_guidance']}, miou {res['miou']:.4f} vs "
           f"{res_ref['miou']:.4f}, video mean_abs={mean_err:.3e} max_abs={max_err:.3e}, "
           f"launches {counts}", flush=True)
-    if any(v == 0 for v in counts.values()):
+    if any(v == 0 for k, v in counts.items() if k != "geglu_ff"):  # K6 is off by default
         fail(f"small overall did not reach every kernel: {counts}")
     if not (torch.isfinite(lat).all() and rel <= SMALL_LATENT_TOL):
         fail("small stage-1 latents on the card differ from their f32 reference")
@@ -761,6 +948,226 @@ def phase_overall(models, card: str) -> dict:
     return counts
 
 
+class KeepGradients:
+    """A transformation that moves nothing and keeps the last gradients, to
+    read a micro-step's gradients from the step the trainer runs."""
+
+    def init(self, params):
+        return {}
+
+    def update(self, grads, state, params):
+        return {"grads": grads}
+
+
+def train_expected_launches(nets, batch: int, tokens: int, encoder_calls: int, k6: bool) -> dict:
+    """Launches of one training micro-step in the "seq" layout with block
+    checkpointing. A checkpointed block that carries a graph runs its forward
+    twice; the frozen UNet's down and mid blocks carry none (the ControlNet's
+    residuals join the skip connections and the mid block's output) and run
+    once, as do the UNet's last norm, the VAE encoder and CLIP. Level i has tokens / 4**i tokens a frame; the
+    spatial attention takes K1 from 1024 tokens and K8 from 128, the temporal
+    one K2 from 256 pixels in the batch."""
+    exp = dict.fromkeys(_launch.LAUNCHES, 0)
+
+    def add(block, level: int, runs: int):
+        s = tokens // 4**level
+        n_tr = len(getattr(block, "attentions", ()))
+        exp["group_norm"] += runs * count_modules(block, layers.GroupNorm)
+        exp["layer_norm"] += runs * count_modules(block, layers.LayerNorm)
+        exp["mha"] += runs * n_tr * (s >= 1024)
+        exp["flash"] += runs * n_tr * (128 <= s < 1024)
+        exp["small_mha"] += runs * n_tr * (batch * s >= 256)
+        exp["geglu_ff"] += runs * count_routed_ff(block) * k6
+
+    unet, ctrl = nets["unet"], nets["ctrl"]
+    top = len(unet.down_blocks) - 1
+    for i, block in enumerate(ctrl.down_blocks):
+        add(block, i, 2)
+    add(ctrl.mid_block, top, 2)
+    for i, block in enumerate(unet.down_blocks):
+        add(block, i, 1)
+    add(unet.mid_block, top, 1)
+    for i, block in enumerate(unet.up_blocks):
+        add(block, top - i, 2)
+    exp["group_norm"] += 1  # the UNet's conv_norm_out
+    exp["group_norm"] += encoder_calls * count_modules(nets["vae"].encoder, layers.GroupNorm)
+    exp["layer_norm"] += count_modules(nets["clip"], layers.LayerNorm)
+    return exp
+
+
+def phase_train(models, card: str) -> dict:
+    """The ControlNet training step at full width (this slice's main path):
+    1 x 25 frames at 512x320, device-random clips, "seq" layout, block
+    checkpointing, encode chunk 5, AdamW (bf16 first moment, lr 1e-5) under
+    accumulation 2."""
+    t0 = time.perf_counter()
+    with torch.device(DEVICE):
+        unet = UNetSpatioTemporalConditionModel(UNET_CONFIG, gradient_checkpointing=True)
+        ctrl = ControlNetSpatioTemporal(UNET_CONFIG, gradient_checkpointing=True)
+    # the serving models' seeded weights; the zero convs are random too, so
+    # that every ControlNet parameter gets a gradient through every kernel
+    unet.to(torch.bfloat16).load_state_dict(models["unet"].state_dict())
+    ctrl.to(torch.bfloat16).load_state_dict(models["ctrl"].state_dict())
+    ctrl.train().requires_grad_(True)
+    nets = dict(unet=unet, ctrl=ctrl, vae=models["vae"], clip=models["clip"])
+    tx = MultiSteps(make_optimizer(learning_rate=1e-5, nan_guard_steps=0, mu_dtype="bfloat16"),
+                    ACCUM)
+    step = make_controlnet_train_step(unet, ctrl, nets["vae"], nets["clip"], tx,
+                                      conditioning_dropout_prob=0.1, encode_chunk=ENCODE_CHUNK)
+    state = init_train_state(ctrl, tx)
+    probe_tx = KeepGradients()
+    probe = make_controlnet_train_step(unet, ctrl, nets["vae"], nets["clip"], probe_tx,
+                                       conditioning_dropout_prob=0.1, encode_chunk=ENCODE_CHUNK)
+    n_train = sum(p.numel() for p in state.params.values())
+    print(f"[train] models built in {time.perf_counter() - t0:.1f} s; {n_train / 1e9:.3f} B "
+          f"trainable parameters in {len(state.params)} tensors", flush=True)
+
+    gen = torch.Generator(device=DEVICE).manual_seed(7)
+    scale = VAE_CONFIG.spatial_scale
+    lat = (H // scale, W // scale, 4)
+    clips, bbox = (2 * torch.rand((1, FRAMES, H, W, 3), generator=gen, device=DEVICE) - 1
+                   for _ in range(2))
+    normal = lambda *shape: torch.randn(shape, generator=gen, device=DEVICE)  # noqa: E731
+    draws = {
+        "latent_noise": normal(FRAMES, *lat), "init_noise": normal(1, *lat),
+        "cond_noise": normal(FRAMES, *lat), "noise": normal(1, FRAMES, *lat),
+        "sigma_idx": torch.tensor([500], device=DEVICE),
+        "dropout_u": torch.tensor([0.9], device=DEVICE),  # keeps both conditionings
+    }
+    encoder_calls = 2 * -(-FRAMES // ENCODE_CHUNK) + 1
+    tokens = lat[0] * lat[1]
+
+    def micro_step(step_fn, st, variant: str):
+        """One micro-step under a variant's switches: (state, metrics, seconds, launches)."""
+        geglu_ff.set_fused_geglu_ff(variant == "K6 on")
+        torch.cuda.synchronize()
+        _launch.reset_launch_counts()
+        t1 = time.perf_counter()
+        try:
+            if variant == "all plain":
+                with _launch.plain_kernels():
+                    st, metrics = step_fn(st, clips, bbox, draws=draws)
+            else:
+                st, metrics = step_fn(st, clips, bbox, draws=draws)
+        finally:
+            geglu_ff.set_fused_geglu_ff(False)
+        torch.cuda.synchronize()
+        return st, metrics, time.perf_counter() - t1, dict(_launch.LAUNCHES)
+
+    def check_metrics(name: str, metrics) -> tuple:
+        loss, norm = metrics["loss"].item(), metrics["grad_norm"].item()
+        if not (np.isfinite(loss) and loss > 0 and np.isfinite(norm) and norm > 0):
+            fail(f"{name}: loss {loss}, grad norm {norm}")
+        return loss, norm
+
+    frozen = {k: {n: p.detach().clone() for n, p in nets[k].state_dict().items()}
+              for k in ("unet", "vae", "clip")}
+    probe_state = init_train_state(ctrl, probe_tx)
+    _, metrics, secs, _ = micro_step(probe, probe_state, "K6 on")
+    print(f"[train] warm-up micro-step {secs:.3f} s, loss {check_metrics('warm-up', metrics)[0]:.4f}",
+          flush=True)
+
+    # Two optimizer updates at accumulation 2, K6 on: the main path's run.
+    update_secs = []
+    inner_update = tx.inner.update
+
+    def timed_update(*args):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        out = inner_update(*args)
+        torch.cuda.synchronize()
+        update_secs.append(time.perf_counter() - t1)
+        return out
+
+    tx.inner.update = timed_update
+    expect = train_expected_launches(nets, 1, tokens, encoder_calls, k6=True)
+    torch.cuda.reset_peak_memory_stats()
+    before = {k: p.detach().clone() for k, p in state.params.items()}
+    path_counts = dict.fromkeys(_launch.LAUNCHES, 0)
+    step_secs = []
+    for i in range(2 * ACCUM):
+        state, metrics, secs, counts = micro_step(step, state, "K6 on")
+        loss, norm = check_metrics(f"micro-step {i}", metrics)
+        moved = sum(not torch.equal(p.detach(), before[k]) for k, p in state.params.items())
+        updates = (i + 1) % ACCUM == 0
+        print(f"[train] micro-step {i}: {secs:.3f} s, loss {loss:.4f}, grad norm {norm:.4f}, "
+              f"{moved} of {len(before)} parameter tensors moved, launches {counts}", flush=True)
+        if counts != expect:
+            fail(f"micro-step {i} launched {counts}, expected {expect}")
+        if updates != (moved > 0):
+            fail(f"micro-step {i}: {moved} parameter tensors moved, update due: {updates}")
+        if updates:
+            before = {k: p.detach().clone() for k, p in state.params.items()}
+        step_secs.append(secs - (update_secs[-1] if updates else 0.0))
+        for k, v in counts.items():
+            path_counts[k] += v
+    tx.inner.update = inner_update
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    if state.step != 2 * ACCUM or state.opt_state["gradient_step"] != 2:
+        fail(f"train state after the updates: step {state.step}, {state.opt_state['gradient_step']}")
+    del before
+
+    # One micro-step a variant from the same parameters and draws, gradients kept.
+    result = {}
+    for variant in ("K6 on", "K6 off", "all plain"):
+        st, metrics, secs, counts = micro_step(probe, probe_state, variant)
+        loss, norm = check_metrics(variant, metrics)
+        result[variant] = dict(loss=loss, norm=norm, secs=[secs], counts=counts,
+                               grads=st.opt_state["grads"])
+        st.opt_state = {}
+    # Two more timings a variant, in turns backwards and forwards.
+    for order in (tuple(result)[::-1], tuple(result)):
+        for variant in order:
+            st, _, secs, _ = micro_step(probe, probe_state, variant)
+            st.opt_state = {}
+            result[variant]["secs"].append(secs)
+    off_expect = train_expected_launches(nets, 1, tokens, encoder_calls, k6=False)
+    if result["K6 off"]["counts"] != off_expect or any(result["all plain"]["counts"].values()):
+        fail(f"K6 off launched {result['K6 off']['counts']}, expected {off_expect}; all plain "
+             f"launched {result['all plain']['counts']}")
+    ref = result["all plain"]
+    for variant in ("K6 on", "K6 off"):
+        res = result[variant]
+        num = sum(float((res["grads"][k].float() - g.float()).square().sum())
+                  for k, g in ref["grads"].items())
+        den = sum(float(g.float().square().sum()) for g in ref["grads"].values())
+        res["grad_rel"] = (num / den) ** 0.5
+        res["loss_rel"] = abs(res["loss"] - ref["loss"]) / abs(ref["loss"])
+    zero_convs = [k for k in ref["grads"] if k.startswith(("controlnet_down_blocks",
+                                                           "controlnet_mid_block"))]
+    dead = [k for k in zero_convs if not float(result["K6 on"]["grads"][k].abs().max()) > 0]
+    if len(zero_convs) != 2 * (len(ctrl.controlnet_down_blocks) + 1) or dead:
+        fail(f"zero convs without a gradient: {dead} of {len(zero_convs)}")
+    for k in ("unet", "vae", "clip"):
+        changed = [n for n, p in nets[k].state_dict().items() if not torch.equal(p, frozen[k][n])]
+        if changed or any(p.requires_grad for p in nets[k].parameters()):
+            fail(f"the frozen {k} changed: {changed[:3]}")
+
+    k6, off = result["K6 on"], result["K6 off"]
+    print(f"[train] ControlNet micro-step, 1x{FRAMES} frames at {W}x{H}, seq layout, block "
+          f"checkpointing, encode chunk {ENCODE_CHUNK}: s/micro-step, median of three taken in "
+          f"turns: K6 on {np.median(k6['secs']):.3f}, K6 off {np.median(off['secs']):.3f}, all "
+          f"plain {np.median(ref['secs']):.3f} (the three: "
+          + "; ".join(", ".join(f"{x:.3f}" for x in result[v]["secs"]) for v in result)
+          + f"); the {2 * ACCUM} accumulated micro-steps with K6 on, without their updates, "
+          f"{', '.join(f'{x:.3f}' for x in step_secs)} s; optimizer update "
+          f"{', '.join(f'{x:.3f}' for x in update_secs)} s; max_memory_allocated {peak:.2f} GiB; "
+          f"card {card}", flush=True)
+    print(f"[train] against all plain (loss {ref['loss']:.5f}, grad norm {ref['norm']:.4f}): "
+          f"K6 on loss_rel={k6['loss_rel']:.3e} grad_rel_l2={k6['grad_rel']:.3e}; K6 off "
+          f"loss_rel={off['loss_rel']:.3e} grad_rel_l2={off['grad_rel']:.3e} (tol "
+          f"{TRAIN_LOSS_TOL}, {TRAIN_GRAD_TOL}); {len(zero_convs)} zero-conv tensors all with a "
+          f"gradient; UNet, VAE and CLIP bit-identical", flush=True)
+    for variant in ("K6 on", "K6 off"):
+        res = result[variant]
+        if res["loss_rel"] > TRAIN_LOSS_TOL or res["grad_rel"] > TRAIN_GRAD_TOL:
+            fail(f"training micro-step with {variant} differs from all plain: {res['loss_rel']}, "
+                 f"{res['grad_rel']}")
+    if not path_counts["geglu_ff"]:
+        fail("the training path did not launch K6")
+    return path_counts
+
+
 # Kinds of device kernel by a word of the name torch.profiler reports; the
 # first kind with a match wins.
 KERNEL_KINDS = (
@@ -768,6 +1175,7 @@ KERNEL_KINDS = (
     ("K1 + K8 (mha.cu)", ("mha_fwd_kernel",)),
     ("K4 (group_norm.cu)", ("namespace)::gn_",)),
     ("K5 (layer_norm.cu)", ("namespace)::layer_norm_kernel",)),
+    ("K6 (geglu_ff.cu)", ("geglu_ff_kernel",)),
     ("cuDNN NCHW<->NHWC transforms", ("nchwToNhwc", "nhwcToNchw")),
     ("convolutions (cuDNN)", ("cudnn", "implicit_gemm", "conv")),
     ("matmuls (cuBLAS)", ("nvjet", "gemm", "cutlass")),
@@ -821,10 +1229,14 @@ def main() -> None:
     if sys.argv[1:]:
         fail(f"unknown arguments {sys.argv[1:]}")
     kernels = phase_kernels()
+    phase_grads()
     phase_small_reference()
     models = build_models()
     phase_step(models)
     paths = {"box2video": phase_sampler(models, card), "overall": phase_overall(models, card)}
+    del models["unet1"]  # the stage-1 UNet is not trained
+    torch.cuda.empty_cache()
+    paths["train"] = phase_train(models, card)
 
     rows = []
     for kind, meta in KERNELS.items():
@@ -839,9 +1251,12 @@ def main() -> None:
             bound_by=by[0],  # of the first, largest shape
             library_ms=float(np.mean(res["library_ms"])),
         ))
-        # Each kernel belongs to the overall path; the earlier path runs all but K3.
-        if paths["overall"][kind] == 0 or (kind != "small_mha_fm" and not paths["box2video"][kind]):
-            fail(f"{kind} was not launched on its path: {rows[-1]['launches_by_path']}")
+        # K1-K5 and K8 belong to the overall path, and all of them but K3 to the
+        # Box2Video and training paths ("seq" layout); K6 is on while training.
+        on = {"box2video": kind not in ("small_mha_fm", "geglu_ff"),
+              "overall": kind != "geglu_ff", "train": kind != "small_mha_fm"}
+        if any((paths[name][kind] > 0) != due for name, due in on.items()):
+            fail(f"{kind} was not launched on its paths: {rows[-1]['launches_by_path']}")
     print(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(card)  # name, power limit
     print(json.dumps({"kernels": rows}))

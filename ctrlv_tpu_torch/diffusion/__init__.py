@@ -5,4 +5,5 @@ from .scheduler import (
     euler_step,
     karras_sigmas,
     scale_model_input,
+    training_sigma_table,
 )

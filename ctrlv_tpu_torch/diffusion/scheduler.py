@@ -1,9 +1,9 @@
-"""EDM / Euler-discrete scheduler of Stable Video Diffusion, for sampling.
+"""EDM / Euler-discrete scheduler of Stable Video Diffusion.
 
-Counterpart of the sampling half of ``ctrlv_tpu/diffusion/scheduler.py``:
-Karras sigmas (rho = 7, 700 -> 0.002, terminal 0), the EDM c_noise timestep
-0.25 * ln(sigma), c_in = 1 / sqrt(sigma^2 + 1), and the v-prediction Euler
-step. The training tables come with the trainers. Tables are numpy; the
+Counterpart of ``ctrlv_tpu/diffusion/scheduler.py``: Karras sigmas (rho = 7,
+700 -> 0.002, terminal 0), the EDM c_noise timestep 0.25 * ln(sigma),
+c_in = 1 / sqrt(sigma^2 + 1), the v-prediction Euler step, and the training
+sigma table of the scaled-linear beta schedule. Tables are numpy; the
 step functions take tensors, with sigma as an f32 tensor so that the
 arithmetic is the reference's.
 """
@@ -24,6 +24,16 @@ def karras_sigmas(num_steps: int, sigma_min: float = 0.002, sigma_max: float = 7
     max_inv_rho = sigma_max ** (1.0 / rho)
     sigmas = (max_inv_rho + ramp * (min_inv_rho - max_inv_rho)) ** rho
     return np.concatenate([sigmas, [0.0]]).astype(np.float32)
+
+
+def training_sigma_table(num_train_timesteps: int = 1000, beta_start: float = 0.00085,
+                         beta_end: float = 0.012) -> np.ndarray:
+    """The training sigmas sqrt((1 - abar_t) / abar_t) of the scaled-linear
+    beta schedule, descending (index 0 is the noisiest), f32."""
+    betas = np.linspace(beta_start**0.5, beta_end**0.5, num_train_timesteps, dtype=np.float64) ** 2
+    alphas_cumprod = np.cumprod(1.0 - betas)
+    sigmas = np.sqrt((1.0 - alphas_cumprod) / alphas_cumprod)
+    return sigmas[::-1].astype(np.float32)
 
 
 def scale_model_input(sample, sigma):

@@ -3,16 +3,31 @@
 Counterpart of ``ctrlv_tpu/models/blocks_st.py``: two layers per down
 block, three per up block, resnet eps 1e-5, one transformer layer per
 attention. Activations are (B*F, C, H, W).
+
+``remat_sub=True`` checkpoints each ResBlock and each transformer on its own
+while a gradient is being recorded (the JAX package's ``nn.remat`` per
+sub-module): its activations are dropped after the forward and recomputed
+in the backward pass.
 """
 
 from __future__ import annotations
 
 import torch
 import torch.nn as nn
+from torch.utils.checkpoint import checkpoint
 
 from .layers import Downsample2D, Upsample2D
 from .resnet import SpatioTemporalResBlock
 from .transformer_st import TransformerSpatioTemporalModel
+
+
+def maybe_checkpoint(on: bool, module, *args):
+    """``module(*args)``, checkpointed when ``on`` and a gradient is being
+    recorded. The modules draw no random numbers, so no generator state is
+    kept for the re-run."""
+    if on and torch.is_grad_enabled():
+        return checkpoint(module, *args, use_reentrant=False, preserve_rng_state=False)
+    return module(*args)
 
 
 def _resnet(cin: int, cout: int, temb_channels: int) -> SpatioTemporalResBlock:
@@ -27,8 +42,9 @@ def _transformer(channels, heads, layers, cross_dim, temporal_layout) -> Transfo
 
 class DownBlockSpatioTemporal(nn.Module):
     def __init__(self, in_channels, out_channels, num_layers=2, add_downsample=True,
-                 temb_channels=1280):
+                 temb_channels=1280, remat_sub=False):
         super().__init__()
+        self.remat_sub = remat_sub
         self.resnets = nn.ModuleList(
             [_resnet(in_channels if i == 0 else out_channels, out_channels, temb_channels)
              for i in range(num_layers)]
@@ -40,7 +56,8 @@ class DownBlockSpatioTemporal(nn.Module):
     def forward(self, hidden_states, temb, image_only_indicator):
         output_states = ()
         for resnet in self.resnets:
-            hidden_states = resnet(hidden_states, temb, image_only_indicator)
+            hidden_states = maybe_checkpoint(
+                self.remat_sub, resnet, hidden_states, temb, image_only_indicator)
             output_states += (hidden_states,)
         if self.downsamplers is not None:
             hidden_states = self.downsamplers[0](hidden_states)
@@ -60,8 +77,10 @@ class CrossAttnDownBlockSpatioTemporal(nn.Module):
         add_downsample=True,
         temb_channels=1280,
         temporal_layout="seq",
+        remat_sub=False,
     ):
         super().__init__()
+        self.remat_sub = remat_sub
         self.resnets = nn.ModuleList(
             [_resnet(in_channels if i == 0 else out_channels, out_channels, temb_channels)
              for i in range(num_layers)]
@@ -78,8 +97,10 @@ class CrossAttnDownBlockSpatioTemporal(nn.Module):
     def forward(self, hidden_states, temb, encoder_hidden_states, image_only_indicator):
         output_states = ()
         for resnet, attn in zip(self.resnets, self.attentions):
-            hidden_states = resnet(hidden_states, temb, image_only_indicator)
-            hidden_states = attn(hidden_states, encoder_hidden_states, image_only_indicator)
+            hidden_states = maybe_checkpoint(
+                self.remat_sub, resnet, hidden_states, temb, image_only_indicator)
+            hidden_states = maybe_checkpoint(
+                self.remat_sub, attn, hidden_states, encoder_hidden_states, image_only_indicator)
             output_states += (hidden_states,)
         if self.downsamplers is not None:
             hidden_states = self.downsamplers[0](hidden_states)
@@ -97,8 +118,10 @@ class UNetMidBlockSpatioTemporal(nn.Module):
         cross_attention_dim=1024,
         temb_channels=1280,
         temporal_layout="seq",
+        remat_sub=False,
     ):
         super().__init__()
+        self.remat_sub = remat_sub
         self.resnets = nn.ModuleList(
             [_resnet(in_channels, in_channels, temb_channels) for _ in range(num_layers + 1)]
         )
@@ -109,10 +132,13 @@ class UNetMidBlockSpatioTemporal(nn.Module):
         )
 
     def forward(self, hidden_states, temb, encoder_hidden_states, image_only_indicator):
-        hidden_states = self.resnets[0](hidden_states, temb, image_only_indicator)
+        hidden_states = maybe_checkpoint(
+            self.remat_sub, self.resnets[0], hidden_states, temb, image_only_indicator)
         for attn, resnet in zip(self.attentions, self.resnets[1:]):
-            hidden_states = attn(hidden_states, encoder_hidden_states, image_only_indicator)
-            hidden_states = resnet(hidden_states, temb, image_only_indicator)
+            hidden_states = maybe_checkpoint(
+                self.remat_sub, attn, hidden_states, encoder_hidden_states, image_only_indicator)
+            hidden_states = maybe_checkpoint(
+                self.remat_sub, resnet, hidden_states, temb, image_only_indicator)
         return hidden_states
 
 
@@ -124,9 +150,10 @@ def _up_in_channels(i, num_layers, in_channels, prev_output_channel, out_channel
 class UpBlockSpatioTemporal(nn.Module):
     def __init__(
         self, in_channels, prev_output_channel, out_channels, num_layers=3, add_upsample=True,
-        temb_channels=1280,
+        temb_channels=1280, remat_sub=False,
     ):
         super().__init__()
+        self.remat_sub = remat_sub
         self.resnets = nn.ModuleList(
             [_resnet(_up_in_channels(i, num_layers, in_channels, prev_output_channel,
                                      out_channels), out_channels, temb_channels)
@@ -141,7 +168,8 @@ class UpBlockSpatioTemporal(nn.Module):
             res_hidden = res_hidden_states_tuple[-1]
             res_hidden_states_tuple = res_hidden_states_tuple[:-1]
             hidden_states = torch.cat([hidden_states, res_hidden], dim=1)
-            hidden_states = resnet(hidden_states, temb, image_only_indicator)
+            hidden_states = maybe_checkpoint(
+                self.remat_sub, resnet, hidden_states, temb, image_only_indicator)
         if self.upsamplers is not None:
             hidden_states = self.upsamplers[0](hidden_states)
         return hidden_states
@@ -160,8 +188,10 @@ class CrossAttnUpBlockSpatioTemporal(nn.Module):
         add_upsample=True,
         temb_channels=1280,
         temporal_layout="seq",
+        remat_sub=False,
     ):
         super().__init__()
+        self.remat_sub = remat_sub
         self.resnets = nn.ModuleList(
             [_resnet(_up_in_channels(i, num_layers, in_channels, prev_output_channel,
                                      out_channels), out_channels, temb_channels)
@@ -184,8 +214,10 @@ class CrossAttnUpBlockSpatioTemporal(nn.Module):
             res_hidden = res_hidden_states_tuple[-1]
             res_hidden_states_tuple = res_hidden_states_tuple[:-1]
             hidden_states = torch.cat([hidden_states, res_hidden], dim=1)
-            hidden_states = resnet(hidden_states, temb, image_only_indicator)
-            hidden_states = attn(hidden_states, encoder_hidden_states, image_only_indicator)
+            hidden_states = maybe_checkpoint(
+                self.remat_sub, resnet, hidden_states, temb, image_only_indicator)
+            hidden_states = maybe_checkpoint(
+                self.remat_sub, attn, hidden_states, encoder_hidden_states, image_only_indicator)
         if self.upsamplers is not None:
             hidden_states = self.upsamplers[0](hidden_states)
         return hidden_states

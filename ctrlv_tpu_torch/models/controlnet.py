@@ -11,6 +11,7 @@ from __future__ import annotations
 import torch
 import torch.nn as nn
 
+from .blocks_st import maybe_checkpoint
 from .layers import TimestepEmbedding
 from .unet_st import (
     UNetSTConfig,
@@ -18,9 +19,11 @@ from .unet_st import (
     flatten_frames,
     make_down_blocks,
     make_mid_block,
+    remat_flags,
     run_down_blocks,
     to_frames_nchw,
 )
+
 
 
 def down_residual_channels(cfg: UNetSTConfig) -> list:
@@ -34,16 +37,18 @@ def down_residual_channels(cfg: UNetSTConfig) -> list:
 
 
 class ControlNetSpatioTemporal(nn.Module):
-    def __init__(self, config: UNetSTConfig = UNetSTConfig(), temporal_layout: str = "seq"):
+    def __init__(self, config: UNetSTConfig = UNetSTConfig(), temporal_layout: str = "seq",
+                 gradient_checkpointing: bool = False, remat_granularity: str = "block"):
         super().__init__()
         cfg = self.config = config
+        self.remat_block, remat_sub = remat_flags(gradient_checkpointing, remat_granularity)
         c0 = cfg.block_out_channels[0]
         self.conv_in = nn.Conv2d(cfg.in_channels, c0, 3, padding=1)
         self.control_conv_in = nn.Conv2d(cfg.in_channels // 2, c0, 3, padding=1)
         self.time_embedding = TimestepEmbedding(c0, c0 * 4)
         self.add_embedding = TimestepEmbedding(cfg.projection_class_embeddings_input_dim, c0 * 4)
-        self.down_blocks = make_down_blocks(cfg, temporal_layout)
-        self.mid_block = make_mid_block(cfg, temporal_layout)
+        self.down_blocks = make_down_blocks(cfg, temporal_layout, remat_sub)
+        self.mid_block = make_mid_block(cfg, temporal_layout, remat_sub)
         self.controlnet_down_blocks = nn.ModuleList(
             [nn.Conv2d(c, c, 1) for c in down_residual_channels(cfg)]
         )
@@ -72,9 +77,12 @@ class ControlNetSpatioTemporal(nn.Module):
         )
         sample = self.conv_in(sample) + self.control_conv_in(to_frames_nchw(control_cond, dtype))
         sample, down_res = run_down_blocks(
-            self.down_blocks, sample, emb, encoder_hidden_states, image_only_indicator
+            self.down_blocks, sample, emb, encoder_hidden_states, image_only_indicator,
+            self.remat_block,
         )
-        sample = self.mid_block(sample, emb, encoder_hidden_states, image_only_indicator)
+        sample = maybe_checkpoint(
+            self.remat_block, self.mid_block, sample, emb, encoder_hidden_states,
+            image_only_indicator)
 
         ctrl_res = tuple(
             conv(res) * conditioning_scale

@@ -13,8 +13,9 @@ GroupNorm and LayerNorm are the kernels of ``ops/group_norm.py`` and
 ``ops/layer_norm.py`` (the JAX package's ``FusedGroupNorm`` and
 ``FusedLayerNorm``, which compute what its ``GroupNorm`` and
 ``nn.LayerNorm`` compute); Attention routes to the kernels of ``ops/mha.py``
-and ``ops/attention.py``. ``plain_kernels()`` sends them all to their plain
-versions.
+and ``ops/attention.py``; FeedForward routes to the fused kernel of
+``ops/geglu_ff.py`` where ``set_fused_geglu_ff`` and the shape gate allow.
+``plain_kernels()`` sends them all to their plain versions.
 """
 
 from __future__ import annotations
@@ -28,7 +29,7 @@ import torch.nn.functional as F
 
 from ..ops import mha
 from ..ops.attention import dot_product_attention
-from ..ops.geglu_ff import gelu_erf
+from ..ops.geglu_ff import geglu_ff, geglu_ff_plain, geglu_ff_supported, gelu_erf
 from ..ops.group_norm import group_norm, group_norm_plain
 from ..ops.layer_norm import layer_norm, layer_norm_plain
 
@@ -228,7 +229,12 @@ class GEGLU(nn.Module):
 
 
 class FeedForward(nn.Module):
-    """diffusers FeedForward: GEGLU (``net.0``) then Linear (``net.2``)."""
+    """diffusers FeedForward: GEGLU (``net.0``) then Linear (``net.2``).
+
+    While ``set_fused_geglu_ff`` is on and the flattened (rows, C) shape
+    passes ``geglu_ff_supported``, the whole chain is one call of the fused
+    kernel on the same parameters, as in the JAX package; otherwise the two
+    Linears with the gelu gate between."""
 
     def __init__(self, dim: int, dim_out: Optional[int] = None, mult: int = 4):
         super().__init__()
@@ -239,6 +245,13 @@ class FeedForward(nn.Module):
         )
 
     def forward(self, x):
+        proj, out = self.net[0].proj, self.net[2]
+        c_in = x.shape[-1]
+        m = x.numel() // c_in
+        if geglu_ff_supported(m, c_in, out.in_features, out.out_features, x.dtype):
+            fn = geglu_ff_plain if mha.plain_selected() else geglu_ff
+            y = fn(x.reshape(m, c_in), proj.weight, proj.bias, out.weight, out.bias)
+            return y.reshape(x.shape[:-1] + (out.out_features,))
         for layer in self.net:
             x = layer(x)
         return x

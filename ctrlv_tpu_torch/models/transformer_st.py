@@ -107,12 +107,14 @@ class TransformerSpatioTemporalModel(nn.Module):
                     h_mix.reshape(batch, num_frames, seq, inner)
                     .transpose(1, 2)
                     .reshape(batch * seq, num_frames, inner)
+                    .contiguous()  # at batch 1 the reshape is a strided view, no copy
                 )
                 h_mix = tblock(h_mix, time_context)
                 h_mix = (
                     h_mix.reshape(batch, seq, num_frames, inner)
                     .transpose(1, 2)
                     .reshape(bf, seq, inner)
+                    .contiguous()
                 )
             h = self.time_mixer(h, h_mix, image_only_indicator)
 

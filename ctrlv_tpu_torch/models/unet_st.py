@@ -20,6 +20,7 @@ from .blocks_st import (
     DownBlockSpatioTemporal,
     UNetMidBlockSpatioTemporal,
     UpBlockSpatioTemporal,
+    maybe_checkpoint,
 )
 from .layers import GroupNorm, TimestepEmbedding, get_timestep_embedding
 
@@ -78,7 +79,18 @@ class UNetSTConfig:
         )
 
 
-def make_down_blocks(cfg: UNetSTConfig, temporal_layout: str = "seq") -> nn.ModuleList:
+def remat_flags(gradient_checkpointing: bool, remat_granularity: str):
+    """(checkpoint whole blocks, checkpoint each ResBlock and transformer):
+    "block" keeps fewer boundaries and recomputes more at once, "sub" has the
+    lower peak in the backward pass."""
+    if remat_granularity not in ("block", "sub"):
+        raise ValueError(f"remat_granularity {remat_granularity!r} is not 'block' or 'sub'")
+    remat_sub = gradient_checkpointing and remat_granularity == "sub"
+    return gradient_checkpointing and not remat_sub, remat_sub
+
+
+def make_down_blocks(cfg: UNetSTConfig, temporal_layout: str = "seq",
+                     remat_sub: bool = False) -> nn.ModuleList:
     """The down path shared by the UNet and the ControlNet."""
     blocks = []
     temb = 4 * cfg.block_out_channels[0]
@@ -91,32 +103,37 @@ def make_down_blocks(cfg: UNetSTConfig, temporal_layout: str = "seq") -> nn.Modu
                 CrossAttnDownBlockSpatioTemporal(
                     in_ch, out_ch, cfg.layers_per_block, cfg.transformer_layers_per_block,
                     cfg.num_attention_heads[i], cfg.cross_attention_dim, add_downsample, temb,
-                    temporal_layout=temporal_layout,
+                    temporal_layout=temporal_layout, remat_sub=remat_sub,
                 )
             )
         elif block_type == "DownBlockSpatioTemporal":
             blocks.append(
-                DownBlockSpatioTemporal(in_ch, out_ch, cfg.layers_per_block, add_downsample, temb)
+                DownBlockSpatioTemporal(in_ch, out_ch, cfg.layers_per_block, add_downsample, temb,
+                                        remat_sub=remat_sub)
             )
         else:
             raise ValueError(block_type)
     return nn.ModuleList(blocks)
 
 
-def run_down_blocks(blocks, sample, emb, encoder_hidden_states, image_only_indicator):
+def run_down_blocks(blocks, sample, emb, encoder_hidden_states, image_only_indicator,
+                    remat_block: bool = False):
     """The down path: returns the last hidden state and every residual,
-    starting with the input (conv_in's output)."""
+    starting with the input (conv_in's output). ``remat_block`` checkpoints
+    each block as a whole."""
     down_res = (sample,)
     for block in blocks:
         if isinstance(block, CrossAttnDownBlockSpatioTemporal):
-            sample, res = block(sample, emb, encoder_hidden_states, image_only_indicator)
+            sample, res = maybe_checkpoint(
+                remat_block, block, sample, emb, encoder_hidden_states, image_only_indicator)
         else:
-            sample, res = block(sample, emb, image_only_indicator)
+            sample, res = maybe_checkpoint(remat_block, block, sample, emb, image_only_indicator)
         down_res += res
     return sample, down_res
 
 
-def make_mid_block(cfg: UNetSTConfig, temporal_layout: str = "seq") -> UNetMidBlockSpatioTemporal:
+def make_mid_block(cfg: UNetSTConfig, temporal_layout: str = "seq",
+                   remat_sub: bool = False) -> UNetMidBlockSpatioTemporal:
     return UNetMidBlockSpatioTemporal(
         cfg.block_out_channels[-1],
         transformer_layers_per_block=cfg.transformer_layers_per_block,
@@ -124,6 +141,7 @@ def make_mid_block(cfg: UNetSTConfig, temporal_layout: str = "seq") -> UNetMidBl
         cross_attention_dim=cfg.cross_attention_dim,
         temb_channels=4 * cfg.block_out_channels[0],
         temporal_layout=temporal_layout,
+        remat_sub=remat_sub,
     )
 
 
@@ -167,17 +185,24 @@ class UNetSpatioTemporalConditionModel(nn.Module):
     """``temporal_layout`` ("seq" or "frames_major") goes to every
     TransformerSpatioTemporalModel; it is a constructor keyword and no field
     of the config, which both packages share. The two layouts compute the
-    same function from the same weights."""
+    same function from the same weights.
 
-    def __init__(self, config: UNetSTConfig = UNetSTConfig(), temporal_layout: str = "seq"):
+    ``gradient_checkpointing`` with ``remat_granularity`` "block" or "sub"
+    checkpoints the down, mid and up blocks, or each ResBlock and
+    transformer inside them, while a gradient is being recorded; like the
+    layout they are constructor keywords, as in the JAX package."""
+
+    def __init__(self, config: UNetSTConfig = UNetSTConfig(), temporal_layout: str = "seq",
+                 gradient_checkpointing: bool = False, remat_granularity: str = "block"):
         super().__init__()
         cfg = self.config = config
+        self.remat_block, remat_sub = remat_flags(gradient_checkpointing, remat_granularity)
         c0 = cfg.block_out_channels[0]
         self.conv_in = nn.Conv2d(cfg.in_channels, c0, 3, padding=1)
         self.time_embedding = TimestepEmbedding(c0, c0 * 4)
         self.add_embedding = TimestepEmbedding(cfg.projection_class_embeddings_input_dim, c0 * 4)
-        self.down_blocks = make_down_blocks(cfg, temporal_layout)
-        self.mid_block = make_mid_block(cfg, temporal_layout)
+        self.down_blocks = make_down_blocks(cfg, temporal_layout, remat_sub)
+        self.mid_block = make_mid_block(cfg, temporal_layout, remat_sub)
 
         rev_ch = tuple(reversed(cfg.block_out_channels))
         rev_heads = tuple(reversed(cfg.num_attention_heads))
@@ -193,12 +218,13 @@ class UNetSpatioTemporalConditionModel(nn.Module):
                     CrossAttnUpBlockSpatioTemporal(
                         in_ch, prev_ch, out_ch, num_layers, cfg.transformer_layers_per_block,
                         rev_heads[i], cfg.cross_attention_dim, add_upsample, c0 * 4,
-                        temporal_layout=temporal_layout,
+                        temporal_layout=temporal_layout, remat_sub=remat_sub,
                     )
                 )
             elif block_type == "UpBlockSpatioTemporal":
                 up.append(
-                    UpBlockSpatioTemporal(in_ch, prev_ch, out_ch, num_layers, add_upsample, c0 * 4)
+                    UpBlockSpatioTemporal(in_ch, prev_ch, out_ch, num_layers, add_upsample, c0 * 4,
+                                          remat_sub=remat_sub)
                 )
             else:
                 raise ValueError(block_type)
@@ -224,12 +250,14 @@ class UNetSpatioTemporalConditionModel(nn.Module):
 
         sample, down_res = run_down_blocks(
             self.down_blocks, self.conv_in(sample), emb, encoder_hidden_states,
-            image_only_indicator,
+            image_only_indicator, self.remat_block,
         )
         if down_block_additional_residuals is not None:
             down_res = tuple(r + c for r, c in zip(down_res, down_block_additional_residuals))
 
-        sample = self.mid_block(sample, emb, encoder_hidden_states, image_only_indicator)
+        sample = maybe_checkpoint(
+            self.remat_block, self.mid_block, sample, emb, encoder_hidden_states,
+            image_only_indicator)
         if mid_block_additional_residuals is not None:
             sample = sample + mid_block_additional_residuals
 
@@ -237,9 +265,12 @@ class UNetSpatioTemporalConditionModel(nn.Module):
             n = len(block.resnets)
             res, down_res = down_res[-n:], down_res[:-n]
             if isinstance(block, CrossAttnUpBlockSpatioTemporal):
-                sample = block(sample, res, emb, encoder_hidden_states, image_only_indicator)
+                sample = maybe_checkpoint(
+                    self.remat_block, block, sample, res, emb, encoder_hidden_states,
+                    image_only_indicator)
             else:
-                sample = block(sample, res, emb, image_only_indicator)
+                sample = maybe_checkpoint(
+                    self.remat_block, block, sample, res, emb, image_only_indicator)
 
         sample = self.conv_out(self.conv_norm_out(sample))
         out = sample.reshape((batch, num_frames) + sample.shape[1:])

@@ -198,12 +198,25 @@ class AutoencoderKLTemporalDecoder(nn.Module):
     def dtype(self):
         return self.quant_conv.weight.dtype
 
-    def encode(self, x):
-        """(B, H, W, 3) -> mode latents (B, h, w, 4), without scaling_factor."""
+    def encode_moments(self, x):
+        """(B, H, W, 3) -> (B, h, w, 8): the latent mean, then its log-variance."""
         # contiguous NCHW: a permuted view would make the convs answer channels-last
         moments = self.quant_conv(self.encoder(x.to(self.dtype).permute(0, 3, 1, 2).contiguous()))
-        mean = moments[:, : self.config.latent_channels]
-        return mean.permute(0, 2, 3, 1)
+        return moments.permute(0, 2, 3, 1)
+
+    def encode(self, x, noise=None, generator=None, sample: bool = False):
+        """(B, H, W, 3) -> latents (B, h, w, 4), without scaling_factor: the
+        mode, or with ``sample=True`` a draw mean + std * noise (log-variance
+        clipped to [-30, 20]). ``noise`` (B, h, w, 4) is taken as given, else
+        drawn from ``generator``."""
+        mean, logvar = self.encode_moments(x).chunk(2, dim=-1)
+        if not sample:
+            return mean
+        std = torch.exp(0.5 * logvar.clamp(-30.0, 20.0))
+        if noise is None:
+            noise = torch.randn(mean.shape, generator=generator, device=mean.device,
+                                dtype=mean.dtype)
+        return mean + std * noise.to(mean.dtype)
 
     def decode(self, z, num_frames: int = 1):
         """(B*F, h, w, 4) -> (B*F, H, W, 3)."""

@@ -9,9 +9,16 @@ from .attention import (
     get_attention_impl,
     set_attention_impl,
 )
-from .geglu_ff import gelu_erf
-# ``group_norm`` and ``layer_norm`` stay modules here: their functions carry
-# the same names and are imported from the modules themselves.
+from .geglu_ff import (
+    geglu_ff_ln,
+    geglu_ff_ln_plain,
+    geglu_ff_plain,
+    geglu_ff_supported,
+    gelu_erf,
+    set_fused_geglu_ff,
+)
+# ``geglu_ff``, ``group_norm`` and ``layer_norm`` stay modules here: their
+# functions carry the same names and are imported from the modules themselves.
 from .group_norm import group_norm_plain, group_norm_supported, set_fused_group_norm
 from .layer_norm import layer_norm_plain, layer_norm_supported, set_fused_layer_norm
 from .mha import (

@@ -50,6 +50,10 @@ _SIGNATURES = {
     "ctrlv_group_norm_fwd": (_P, _P, _P, _P, _P, _L, _L, _L, _I, _I, _I, _I, _I, _F, _P),
     # x, gamma, beta, out, rows, width, params are bf16, eps
     "ctrlv_layer_norm_fwd": (_P, _P, _P, _P, _I, _I, _I, _F, _P),
+    # x, w1, b1, w2, b2, y, rows, width, inner
+    "ctrlv_geglu_ff_fwd": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
+    # x, gamma, beta, w1, b1, w2, b2, y, rows, width, inner, eps
+    "ctrlv_geglu_ff_ln_fwd": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _P),
 }
 
 _lock = threading.Lock()

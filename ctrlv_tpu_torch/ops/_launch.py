@@ -1,11 +1,19 @@
 """What the kernel wrappers share: the launch counts, the all-plain switch,
-operand checks and the ctypes call.
+operand checks, the ctypes call and the kernels' gradient.
 
 Each wrapper adds one to ``LAUNCHES[name]`` where it launches its kernel and
 nowhere else, so a run can show that its path went through the kernels.
 ``plain_kernels()`` makes the model modules call every kernel's plain
 version instead, for comparing the two on the card; each of the newer
 kernels also has a switch of its own in its module.
+
+No kernel has a backward kernel, as none of the TPU kernels has one: each is
+a ``jax.custom_vjp`` that recomputes through its plain reference.
+``with_recompute`` is the counterpart. Where an input requires a gradient
+the kernel runs inside a ``torch.autograd.Function`` that saves the inputs;
+its backward runs the plain version again on detached inputs, with the
+gradient enabled, and differentiates that. Where nothing requires a
+gradient the kernel is launched directly.
 """
 
 from __future__ import annotations
@@ -16,6 +24,7 @@ import torch
 
 LAUNCHES = {
     "mha": 0, "small_mha": 0, "small_mha_fm": 0, "flash": 0, "group_norm": 0, "layer_norm": 0,
+    "geglu_ff": 0,
 }
 _plain = False
 
@@ -65,3 +74,45 @@ def launch(name: str, fn_name: str, device, *args) -> None:
     if rc != 0:
         raise RuntimeError(f"{name}: kernel launch failed with cudaError {rc}")
     LAUNCHES[name] += 1
+
+
+def recompute_backward(plain):
+    """A backward that differentiates ``plain(*inputs)``:
+    ``(grad_out, needs, *inputs) -> one gradient or None per input``."""
+
+    def backward(grad_out, needs, *inputs):
+        with torch.enable_grad():
+            ins = [t.detach().requires_grad_(n) for t, n in zip(inputs, needs)]
+            out = plain(*ins)
+        wanted = [t for t, n in zip(ins, needs) if n]
+        grads = iter(torch.autograd.grad(out, wanted, grad_out.to(out.dtype)))
+        return tuple(next(grads) if n else None for n in needs)
+
+    return backward
+
+
+class _KernelFunction(torch.autograd.Function):
+    """``launch(*inputs)`` forwards; ``backward(grad, needs, *inputs)`` gives
+    the gradients of the inputs that need one."""
+
+    @staticmethod
+    def forward(ctx, launch_fn, backward_fn, *inputs):
+        ctx.backward_fn = backward_fn
+        ctx.save_for_backward(*inputs)
+        return launch_fn(*inputs)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        needs = ctx.needs_input_grad[2:]
+        grads = ctx.backward_fn(grad_out.contiguous(), needs, *ctx.saved_tensors)
+        return (None, None, *grads)
+
+
+def with_recompute(launch_fn, plain, *inputs, backward=None):
+    """``launch_fn(*inputs)``, with a gradient where an input requires one:
+    ``backward`` if given, else the gradient of ``plain(*inputs)``,
+    recomputed in the backward pass. ``inputs`` are the tensor operands;
+    anything else is bound into the two functions by the caller."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in inputs):
+        return _KernelFunction.apply(launch_fn, backward or recompute_backward(plain), *inputs)
+    return launch_fn(*inputs)

@@ -34,7 +34,7 @@ from typing import Optional
 
 import torch
 
-from ._launch import check_operand, launch, plain_selected
+from ._launch import check_operand, launch, plain_selected, with_recompute
 
 _ATTENTION_IMPL = "auto"
 
@@ -80,13 +80,18 @@ def flash_attention(q, k, v, scale: float):
         raise ValueError(f"flash: shapes {tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
     if d not in (64, 128):
         raise ValueError(f"flash: head dim {d} is not 64 or 128")
-    out = torch.empty_like(q)
-    launch(
-        "flash", "ctrlv_flash_fwd", q.device,
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        b, sq, sk, heads, d, ctypes.c_float(scale),
-    )
-    return out
+
+    def run(q, k, v):
+        out = torch.empty_like(q)
+        launch(
+            "flash", "ctrlv_flash_fwd", q.device,
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            b, sq, sk, heads, d, ctypes.c_float(scale),
+        )
+        return out
+
+    # a gradient recomputes through the plain version, as the JAX package's does
+    return with_recompute(run, lambda q, k, v: flash_attention_plain(q, k, v, scale), q, k, v)
 
 
 def dot_product_attention(q, k, v, scale: Optional[float] = None):

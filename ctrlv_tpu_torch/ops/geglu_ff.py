@@ -1,21 +1,181 @@
-"""The gelu of the GEGLU feed-forward, routed by dtype as in
-``ctrlv_tpu/ops/geglu_ff.py::gelu_erf``.
+"""The GEGLU feed-forward: its gelu, its unfused arithmetic, and the fused
+kernel with its plain version.
 
-bf16 takes the tanh form, which the JAX package uses there because it is
-the erf form at bf16 precision (at most one bf16 ulp apart). Every other
-dtype takes the erf form, computed in f32. A plain ``F.gelu`` on bf16 would
-be the erf form and drift from the reference. The fused GEGLU kernel of
-that module is off the JAX package's default path and is not ported yet.
+Counterpart of ``ctrlv_tpu/ops/geglu_ff.py``.
+
+``gelu_erf`` routes by dtype as the JAX package does: bf16 takes the tanh
+form, which the JAX package uses there because it is the erf form at bf16
+precision (at most one bf16 ulp apart); every other dtype takes the erf
+form, computed in f32. A plain ``F.gelu`` on bf16 would be the erf form and
+drift from the reference.
+
+``geglu_ff`` and ``geglu_ff_ln`` replace the Pallas kernels
+``ctrlv_tpu/ops/geglu_ff.py::geglu_ff`` and ``::geglu_ff_ln`` with
+``csrc/geglu_ff.cu``: y = (a * gelu_erf(g)) W2^T + b2 with [a|g] = x W1^T + b1,
+both products on the tensor cores with f32 accumulation, a, g and their
+product rounded to bf16 as the TPU kernel rounds them, and the (M, 2*inner)
+intermediate never in device memory; ``_ln`` normalises each row first (f32
+fast variance, f32 gamma and beta). The weights are ``nn.Linear``'s, read
+where they lie: W1 is (2*inner, C_in) with a's rows first, W2 is
+(C_out, inner). On an H100 the kernel is bound by the tensor cores
+(6*M*C*inner operations against 4*M*C + 6*C*inner bytes); one block holds 64
+(C = 320) or 32 (C = 640) rows of x in shared memory and y's f32 accumulator
+in registers, and walks ``inner`` in chunks whose weight slices it streams
+with cp.async. The source says more.
+
+``_plan`` is the kernel's gate, a pure function of shape and dtype. It
+admits what one block can hold: C_in = C_out in {320, 640}. Wider rows
+(C = 1280 would need a 320 KB accumulator) take the unfused path by the
+gate, as the JAX package does where its ``_plan`` finds no tiling.
+``geglu_ff_supported`` adds the switch: off by default, because on the H100
+the kernel lost the A/B of the denoise step and of the training micro-step
+to the two cuBLAS products (PERF.md).
+
+A CPU tensor takes the plain version. A CUDA tensor launches the kernel or
+raises, also on a shape the gate refuses. The gradient recomputes through
+``geglu_ff_unfused``, as the JAX package's custom VJP recomputes through its
+unfused path.
 """
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 import torch.nn.functional as F
+
+from ._launch import check_operand, launch, with_recompute
+from .layer_norm import layer_norm_plain
+
+_ENABLED = False
+
+# C -> (rows per block, inner chunk, warps), as csrc/geglu_ff.cu instantiates it
+_BLOCKS = {320: (64, 64, 8), 640: (32, 32, 8)}
+
+
+def set_fused_geglu_ff(on: bool) -> None:
+    """Route ``FeedForward`` to the fused kernel where the gate passes."""
+    global _ENABLED
+    _ENABLED = bool(on)
+
+
+def _plan(m: int, c_in: int, inner: int, c_out: int, dtype):
+    """(rows per block, inner chunk, warps) of the kernel, or None where no
+    block can hold the shape."""
+    if dtype != torch.bfloat16 or c_in != c_out or c_in not in _BLOCKS:
+        return None
+    if inner % 64 or not 0 < m < 2**31 // c_in:
+        return None
+    return _BLOCKS[c_in]
+
+
+def geglu_ff_supported(m: int, c_in: int, inner: int, c_out: int, dtype) -> bool:
+    return _ENABLED and _plan(m, c_in, inner, c_out, dtype) is not None
 
 
 def gelu_erf(x):
     if x.dtype == torch.bfloat16:
         return F.gelu(x, approximate="tanh")
+    return _gelu_exact(x)
+
+
+def _gelu_exact(x):
+    """The erf gelu on f32 internals, whatever the dtype."""
     xf = x.float()
     return (0.5 * xf * (1.0 + torch.erf(xf * 0.7071067811865476))).to(x.dtype)
+
+
+def geglu_ff_unfused(x, w1, b1, w2, b2):
+    """``FeedForward``'s arithmetic in x's dtype: Linear, ``gelu_erf`` gate,
+    Linear. The kernels' gradients recompute through it."""
+    h, gate = F.linear(x, w1, b1).chunk(2, dim=-1)
+    return F.linear(h * gelu_erf(gate), w2, b2)
+
+
+def geglu_ff_ln_unfused(x, gamma, beta, w1, b1, w2, b2, eps: float = 1e-5):
+    return geglu_ff_unfused(layer_norm_plain(x, gamma, beta, eps), w1, b1, w2, b2)
+
+
+def geglu_ff_plain(x, w1, b1, w2, b2):
+    """The kernel's arithmetic: f32 accumulation in both products, a and g
+    rounded to x's dtype, the erf gelu on f32 internals, one rounding of y."""
+    inner = w2.shape[1]
+    h = x.float() @ w1.float().t() + b1.float()
+    a, g = h[:, :inner].to(x.dtype), h[:, inner:].to(x.dtype)
+    act = a * _gelu_exact(g)
+    return (act.float() @ w2.float().t() + b2.float()).to(x.dtype)
+
+
+def geglu_ff_ln_plain(x, gamma, beta, w1, b1, w2, b2, eps: float = 1e-5):
+    return geglu_ff_plain(layer_norm_plain(x, gamma, beta, eps), w1, b1, w2, b2)
+
+
+def _check_cuda(x, w1, b1, w2, b2):
+    if x.dim() != 2:
+        raise ValueError(f"geglu_ff: x must be (M, C), got {tuple(x.shape)}")
+    m, c_in = x.shape
+    c_out, inner = w2.shape
+    if w1.shape != (2 * inner, c_in) or b1.shape != (2 * inner,) or b2.shape != (c_out,):
+        raise ValueError(
+            f"geglu_ff: shapes x {tuple(x.shape)}, w1 {tuple(w1.shape)}, b1 {tuple(b1.shape)}, "
+            f"w2 {tuple(w2.shape)}, b2 {tuple(b2.shape)}"
+        )
+    for t in (x, w1, b1, w2, b2):
+        check_operand("geglu_ff", t, torch.bfloat16, x.device)
+    if _plan(m, c_in, inner, c_out, x.dtype) is None:
+        raise ValueError(
+            f"geglu_ff: no block holds (M, C_in, inner, C_out) = {(m, c_in, inner, c_out)}; "
+            f"the kernel takes C_in = C_out in {sorted(_BLOCKS)} and inner a multiple of 64"
+        )
+    return m, c_in, inner
+
+
+def _geglu_ff_cuda(x, w1, b1, w2, b2):
+    m, c, inner = _check_cuda(x, w1, b1, w2, b2)
+    y = torch.empty_like(x)
+    launch(
+        "geglu_ff", "ctrlv_geglu_ff_fwd", x.device,
+        x.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), b2.data_ptr(), y.data_ptr(),
+        m, c, inner,
+    )
+    return y
+
+
+def _geglu_ff_ln_cuda(x, gamma, beta, w1, b1, w2, b2, eps: float):
+    m, c, inner = _check_cuda(x, w1, b1, w2, b2)
+    if gamma.shape != (c,) or beta.shape != (c,):
+        raise ValueError(f"geglu_ff_ln: norm parameters of shape {tuple(gamma.shape)} for {c}")
+    # the kernel reads gamma and beta as f32, as the TPU kernel does
+    gamma32, beta32 = gamma.float().contiguous(), beta.float().contiguous()
+    for p in (gamma32, beta32):
+        check_operand("geglu_ff_ln", p, torch.float32, x.device)
+    y = torch.empty_like(x)
+    launch(
+        "geglu_ff", "ctrlv_geglu_ff_ln_fwd", x.device,
+        x.data_ptr(), gamma32.data_ptr(), beta32.data_ptr(), w1.data_ptr(), b1.data_ptr(),
+        w2.data_ptr(), b2.data_ptr(), y.data_ptr(), m, c, inner, ctypes.c_float(eps),
+    )
+    return y
+
+
+def geglu_ff(x, w1, b1, w2, b2):
+    """y = (a * gelu_erf(g)) W2^T + b2 with [a|g] = x W1^T + b1 over (M, C_in)
+    rows; w1 (2*inner, C_in), w2 (C_out, inner), as ``nn.Linear`` keeps them."""
+    if x.device.type == "cpu":
+        return geglu_ff_plain(x, w1, b1, w2, b2)
+    if x.device.type != "cuda":
+        raise ValueError(f"geglu_ff: no kernel for device {x.device}")
+    return with_recompute(_geglu_ff_cuda, geglu_ff_unfused, x, w1, b1, w2, b2)
+
+
+def geglu_ff_ln(x, gamma, beta, w1, b1, w2, b2, eps: float = 1e-5):
+    """``geglu_ff`` of LayerNorm(x): f32 fast-variance statistics, f32 affine."""
+    if x.device.type == "cpu":
+        return geglu_ff_ln_plain(x, gamma, beta, w1, b1, w2, b2, eps)
+    if x.device.type != "cuda":
+        raise ValueError(f"geglu_ff_ln: no kernel for device {x.device}")
+    return with_recompute(
+        lambda *t: _geglu_ff_ln_cuda(*t, eps),
+        lambda *t: geglu_ff_ln_unfused(*t, eps),
+        x, gamma, beta, w1, b1, w2, b2,
+    )

@@ -25,7 +25,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-from ._launch import check_operand, launch
+from ._launch import check_operand, launch, with_recompute
 
 # Runs of at most this many elements are normalised from shared memory in one
 # read; longer ones are read twice, split into slices of this many elements
@@ -118,5 +118,10 @@ def group_norm(x, weight, bias, num_groups: int = 32, eps: float = 1e-6,
     if x.device.type != "cuda":
         raise ValueError(f"group_norm: no kernel for device {x.device}")
     if _FUSED_GN and group_norm_supported(x.shape, num_groups, x.dtype, weight.dtype):
-        return _group_norm_cuda(x, weight, bias, num_groups, eps, act)
+        # a gradient recomputes through the plain version (fast variance)
+        return with_recompute(
+            lambda *t: _group_norm_cuda(*t, num_groups, eps, act),
+            lambda *t: group_norm_plain(*t, num_groups, eps, act),
+            x, weight, bias,
+        )
     return group_norm_plain(x, weight, bias, num_groups, eps, act)

@@ -19,7 +19,7 @@ import ctypes
 
 import torch
 
-from ._launch import check_operand, launch
+from ._launch import check_operand, launch, with_recompute
 
 _MAX_WIDTH = 2048  # 8 vectors of 8 bf16 per lane
 
@@ -88,5 +88,10 @@ def layer_norm(x, weight, bias, eps: float = 1e-5):
     if x.device.type != "cuda":
         raise ValueError(f"layer_norm: no kernel for device {x.device}")
     if _FUSED_LN and layer_norm_supported(x.shape, x.dtype, weight.dtype):
-        return _layer_norm_cuda(x, weight, bias, eps)
+        # a gradient recomputes through the plain version (fast variance)
+        return with_recompute(
+            lambda *t: _layer_norm_cuda(*t, eps),
+            lambda *t: layer_norm_plain(*t, eps),
+            x, weight, bias,
+        )
     return layer_norm_plain(x, weight, bias, eps)

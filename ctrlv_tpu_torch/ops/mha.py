@@ -25,6 +25,10 @@ one to ``LAUNCHES[name]``, so a run can show that its main path went through
 the kernels. ``plain_kernels()`` makes the model modules call the plain
 versions instead, for comparing the two on the card.
 
+An operand that requires a gradient gets one: the backward pass recomputes
+through the plain version (``_launch.with_recompute``), the spatial kernel
+one head at a time, as the JAX package's custom VJPs do.
+
 The gates keep the JAX package's shape conditions and drop its TPU memory
 budgets.
 """
@@ -41,7 +45,9 @@ from ._launch import (  # noqa: F401  (re-exported: callers read them here)
     launch,
     plain_kernels,
     plain_selected,
+    recompute_backward,
     reset_launch_counts,
+    with_recompute,
 )
 
 def mha_supported(sq: int, sk: int, hd: int, heads: int) -> bool:
@@ -115,11 +121,33 @@ def _check_cuda(name: str, q3, k3, v3, heads: int) -> int:
     return hd // heads
 
 
-def _launch(name: str, fn_name: str, q3, k3, v3, out, ints, scale: float) -> None:
+def _launch(name: str, fn_name: str, q3, k3, v3, ints, scale: float):
+    out = torch.empty_like(q3)
     launch(
         name, fn_name, q3.device,
         q3.data_ptr(), k3.data_ptr(), v3.data_ptr(), out.data_ptr(), *ints, ctypes.c_float(scale),
     )
+    return out
+
+
+def attention_backward_sliced(heads: int, scale: float):
+    """The gradient of ``attention_plain``, recomputed and differentiated one
+    head at a time, so that the f32 logits of one head only are alive (all
+    heads of the spatial attention at once are gigabytes)."""
+    one_head = recompute_backward(lambda q, k, v: attention_plain(q, k, v, 1, scale))
+
+    def backward(grad_out, needs, q3, k3, v3):
+        d = q3.shape[-1] // heads
+        grads = [torch.empty_like(t) if n else None for t, n in zip((q3, k3, v3), needs)]
+        for h in range(heads):
+            sl = slice(h * d, (h + 1) * d)
+            part = one_head(grad_out[..., sl], needs, q3[..., sl], k3[..., sl], v3[..., sl])
+            for dst, g in zip(grads, part):
+                if dst is not None:
+                    dst[..., sl] = g
+        return tuple(grads)
+
+    return backward
 
 
 def mha_attention(q3, k3, v3, heads: int, scale: float):
@@ -130,9 +158,11 @@ def mha_attention(q3, k3, v3, heads: int, scale: float):
         raise ValueError(f"mha_attention: no kernel for device {q3.device}")
     d = _check_cuda("mha", q3, k3, v3, heads)
     b, sq, _ = q3.shape
-    out = torch.empty_like(q3)
-    _launch("mha", "ctrlv_mha_fwd", q3, k3, v3, out, (b, sq, k3.shape[1], heads, d), scale)
-    return out
+    ints = (b, sq, k3.shape[1], heads, d)
+    return with_recompute(
+        lambda q, k, v: _launch("mha", "ctrlv_mha_fwd", q, k, v, ints, scale),
+        None, q3, k3, v3, backward=attention_backward_sliced(heads, scale),
+    )
 
 
 def small_mha_attention(q3, k3, v3, heads: int, scale: float):
@@ -145,9 +175,12 @@ def small_mha_attention(q3, k3, v3, heads: int, scale: float):
     n, f, _ = q3.shape
     if k3.shape[1] != f or not 1 <= f <= 64:
         raise ValueError(f"small_mha: needs Sq == Sk <= 64, got {f} and {k3.shape[1]}")
-    out = torch.empty_like(q3)
-    _launch("small_mha", "ctrlv_small_mha_fwd", q3, k3, v3, out, (n, f, heads, d), scale)
-    return out
+    return with_recompute(
+        lambda q, k, v: _launch("small_mha", "ctrlv_small_mha_fwd", q, k, v, (n, f, heads, d),
+                                scale),
+        lambda q, k, v: small_mha_attention_plain(q, k, v, heads, scale),
+        q3, k3, v3,
+    )
 
 
 def small_mha_attention_fm(q3, k3, v3, heads: int, scale: float, num_frames: int):
@@ -164,7 +197,9 @@ def small_mha_attention_fm(q3, k3, v3, heads: int, scale: float, num_frames: int
             f"small_mha_fm: needs Sq == Sk and B*F a multiple of F <= 64, got "
             f"{tuple(q3.shape)}, {tuple(k3.shape)}, F={num_frames}"
         )
-    out = torch.empty_like(q3)
-    _launch("small_mha_fm", "ctrlv_small_mha_fm_fwd", q3, k3, v3, out,
-            (bf // num_frames, num_frames, s, heads, d), scale)
-    return out
+    ints = (bf // num_frames, num_frames, s, heads, d)
+    return with_recompute(
+        lambda q, k, v: _launch("small_mha_fm", "ctrlv_small_mha_fm_fwd", q, k, v, ints, scale),
+        lambda q, k, v: small_mha_attention_fm_plain(q, k, v, heads, scale, num_frames),
+        q3, k3, v3,
+    )

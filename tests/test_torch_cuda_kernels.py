@@ -13,7 +13,14 @@ attention kernels round P to bf16 before the product with V at other places
 than the plain versions, and the outputs are bf16 (ulp 2^-8 relative), so
 they agree to a few bf16 ulps: |kernel - plain| <= 1e-2 * (1 + |plain|).
 The norm kernels sum in another order and round once, one bf16 ulp apart at
-most, inside the same bound.
+most, inside the same bound. The feed-forward kernel accumulates its two
+products in another order than cuBLAS and rounds a, g, their product and y to
+bf16, inside the same bound too.
+
+Gradients: a wrapper's backward differentiates its plain version, so the
+gradient through the wrapper is held against the gradient through the plain
+version alone: the same arithmetic on the same inputs, equal to a few bf16
+ulps of reduction order.
 """
 
 import pytest
@@ -21,7 +28,7 @@ import torch
 
 from ctrlv_tpu_torch.models import layers
 from ctrlv_tpu_torch.models.transformer_st import TransformerSpatioTemporalModel
-from ctrlv_tpu_torch.ops import _launch, attention, group_norm, layer_norm, mha
+from ctrlv_tpu_torch.ops import _launch, attention, geglu_ff, group_norm, layer_norm, mha
 
 pytestmark = pytest.mark.cuda
 
@@ -291,3 +298,134 @@ def test_attention_modules_route_to_new_kernels(cuda):
             assert out.is_contiguous()
             assert_close(out, ref)
     torch.cuda.synchronize()
+
+
+def _ff_operands(m, c, device, seed=0, ln=False):
+    gen = torch.Generator(device=device).manual_seed(seed)
+    inner = 4 * c
+
+    def draw(shape, scale):
+        return (scale * torch.randn(shape, generator=gen, device=device)).bfloat16()
+
+    ops = [draw((m, c), 1.0), draw((2 * inner, c), c**-0.5), draw((2 * inner,), 0.1),
+           draw((c, inner), inner**-0.5), draw((c,), 0.1)]
+    if ln:
+        w, b = _affine(c, device, torch.bfloat16, seed)
+        ops = [1.5 * ops[0] + 0.3, w, b] + ops[1:]
+    return ops
+
+
+@pytest.mark.parametrize("ln", [False, True], ids=["ff", "ff_ln"])
+@pytest.mark.parametrize("m,c", [(64, 320), (4096, 320), (1001, 320), (1, 320),
+                                 (32, 640), (4096, 640), (999, 640)])
+def test_geglu_ff_kernel_matches_plain(cuda, m, c, ln):
+    ops = _ff_operands(m, c, cuda, seed=m, ln=ln)
+    fn, plain = ((geglu_ff.geglu_ff_ln, geglu_ff.geglu_ff_ln_plain) if ln
+                 else (geglu_ff.geglu_ff, geglu_ff.geglu_ff_plain))
+    before = _launch.LAUNCHES["geglu_ff"]
+    out = fn(*ops)
+    torch.cuda.synchronize()
+    assert _launch.LAUNCHES["geglu_ff"] == before + 1
+    assert out.shape == (m, c) and out.dtype == torch.bfloat16
+    assert_close(out, plain(*ops))
+
+
+def test_geglu_ff_raises_instead_of_falling_back(cuda):
+    x, w1, b1, w2, b2 = _ff_operands(64, 320, cuda)
+    with pytest.raises(TypeError):  # f32 rows: the kernel takes bf16
+        geglu_ff.geglu_ff(x.float(), w1, b1, w2, b2)
+    with pytest.raises(ValueError):  # not contiguous
+        geglu_ff.geglu_ff(x.t().contiguous().t(), w1, b1, w2, b2)
+    wide = _ff_operands(64, 1280, cuda)
+    with pytest.raises(ValueError):  # the gate refuses C = 1280: forcing it raises
+        geglu_ff.geglu_ff(*wide)
+    with pytest.raises(ValueError):  # w2 of another inner width
+        geglu_ff.geglu_ff(x, w1, b1, w2[:, :640].contiguous(), b2)
+
+
+def test_feed_forward_module_routes_to_the_kernel(cuda):
+    torch.manual_seed(0)
+    ff = layers.FeedForward(320).to(cuda, torch.bfloat16)
+    wide = layers.FeedForward(1280).to(cuda, torch.bfloat16)
+    x = torch.randn(2, 300, 320, device=cuda, dtype=torch.bfloat16)
+    with torch.no_grad():
+        off = ff(x)
+        try:
+            geglu_ff.set_fused_geglu_ff(True)
+            _launch.reset_launch_counts()
+            out = ff(x)
+            wide(torch.randn(2, 8, 1280, device=cuda, dtype=torch.bfloat16))  # by the gate
+            assert _launch.LAUNCHES["geglu_ff"] == 1
+            with _launch.plain_kernels():
+                plain = ff(x)
+            assert _launch.LAUNCHES["geglu_ff"] == 1
+        finally:
+            geglu_ff.set_fused_geglu_ff(False)
+    torch.cuda.synchronize()
+    assert out.shape == x.shape
+    assert_close(out, plain)
+    assert_close(out, off)  # the unfused path: tanh gelu, at most a bf16 ulp of act away
+
+
+def _grad_case(kind, device):
+    """(wrapper, plain, operands) at a small shape the kernel takes."""
+    gen = torch.Generator(device=device).manual_seed(11)
+    draw = lambda *s: torch.randn(s, generator=gen, device=device, dtype=torch.bfloat16)  # noqa: E731
+    if kind == "mha":
+        return (lambda *t: mha.mha_attention(*t, 2, 0.125),
+                lambda *t: mha.mha_attention_plain(*t, 2, 0.125),
+                [draw(2, 1100, 128) for _ in range(3)])
+    if kind == "small_mha":
+        return (lambda *t: mha.small_mha_attention(*t, 5, 0.125),
+                lambda *t: mha.small_mha_attention_plain(*t, 5, 0.125),
+                [draw(301, 25, 320) for _ in range(3)])
+    if kind == "small_mha_fm":
+        return (lambda *t: mha.small_mha_attention_fm(*t, 5, 0.125, 25),
+                lambda *t: mha.small_mha_attention_fm_plain(*t, 5, 0.125, 25),
+                [draw(50, 151, 320) for _ in range(3)])
+    if kind == "flash":
+        return (lambda *t: attention.flash_attention(*t, 0.125),
+                lambda *t: attention.flash_attention_plain(*t, 0.125),
+                [draw(3, 160, 10, 64) for _ in range(3)])
+    if kind == "group_norm":
+        w, b = _affine(320, device, torch.bfloat16)
+        return (lambda *t: group_norm.group_norm(*t, 32, 1e-5, "silu"),
+                lambda *t: group_norm.group_norm_plain(*t, 32, 1e-5, "silu"),
+                [1.5 * draw(3, 320, 10, 16) + 0.3, w, b])
+    if kind == "layer_norm":
+        w, b = _affine(320, device, torch.bfloat16)
+        return (lambda *t: layer_norm.layer_norm(*t, 1e-5),
+                lambda *t: layer_norm.layer_norm_plain(*t, 1e-5), [draw(257, 320), w, b])
+    if kind == "geglu_ff":
+        return geglu_ff.geglu_ff, geglu_ff.geglu_ff_unfused, _ff_operands(1001, 320, device)
+    return (geglu_ff.geglu_ff_ln, geglu_ff.geglu_ff_ln_unfused,
+            _ff_operands(1001, 640, device, ln=True))
+
+
+@pytest.mark.parametrize("kind", ["mha", "small_mha", "small_mha_fm", "flash", "group_norm",
+                                  "layer_norm", "geglu_ff", "geglu_ff_ln"])
+def test_wrapper_gradient_matches_plain_gradient(cuda, kind):
+    """A CUDA operand that requires a gradient gets the kernel's forward and
+    the gradient of the plain version; one that does not gets None."""
+    fn, plain, ops = _grad_case(kind, cuda)
+    name = "geglu_ff" if kind.startswith("geglu") else kind
+    ins = [t.clone().requires_grad_(True) for t in ops]
+    before = _launch.LAUNCHES[name]
+    out = fn(*ins)
+    assert _launch.LAUNCHES[name] == before + 1 and out.requires_grad
+    with torch.no_grad():
+        assert torch.equal(out, fn(*ops))  # the same forward as without a gradient
+    r = torch.randn(out.shape, device=cuda, dtype=torch.bfloat16)
+    grads = torch.autograd.grad((out * r).sum(), ins)
+    ref_ins = [t.clone().requires_grad_(True) for t in ops]
+    ref = torch.autograd.grad((plain(*ref_ins) * r).sum(), ref_ins)
+    torch.cuda.synchronize()
+    for g, g_ref in zip(grads, ref):
+        assert g.shape == g_ref.shape and torch.isfinite(g).all()
+        err = (g.float() - g_ref.float()).norm() / g_ref.float().norm().clamp_min(1e-12)
+        assert err.item() <= 1e-2, (kind, err.item())
+    # only the first operand asks: the others get no gradient and cost no backward work
+    first = ops[0].clone().requires_grad_(True)
+    out = fn(first, *ops[1:])
+    out.backward(r)
+    assert first.grad is not None and all(t.grad is None for t in ops[1:])
