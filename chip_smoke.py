@@ -2,9 +2,9 @@
 
     python3 chip_smoke.py
 
-Drives the port's two serving paths and its ControlNet training step at the
-full SVD-XT width with seeded random bf16 weights, through its seven
-hand-written CUDA kernels:
+Drives the port's two serving paths and its ControlNet and stage-1 training
+steps at the full SVD-XT width with seeded random bf16 weights, through its
+eight hand-written CUDA kernels:
 
 1. device: the card's name and power limit, torch and CUDA versions, the
    TF32 switches;
@@ -22,7 +22,8 @@ hand-written CUDA kernels:
    on the card against the same weights and draws in f32 on the CPU;
 5. step: one full-width ControlNet+UNet denoise step with all kernels, with
    each of K3, K4, K5, K8 switched off in turn, with K4 on its split path
-   only, with K6 (off by default) switched on, and with all plain;
+   only, with K6 and with K7 (both off by default) switched on, and with all
+   plain;
 6. sampler: two Box2Video requests: 25 frames at 512x320, CFG 1 -> 3, 25
    Euler steps, decode chunk 8, synthetic bbox frames;
 7. overall: one two-stage request: five stage-1 candidates in one batch
@@ -34,7 +35,15 @@ hand-written CUDA kernels:
    first moment): a warm-up micro-step, two optimizer updates at
    accumulation 2 with K6 on, then one micro-step each with K6 on, K6 off
    and all plain from the same parameters and draws. Loss, gradients, which
-   parameters moved and when, and every kernel's launch count are checked.
+   parameters moved and when, and every kernel's launch count are checked;
+9. train_svd: the stage-1 training step in the temporal regime (the bbox
+   predictor: only the temporal transformer blocks train, as a partitioned
+   subset) on one clip, with the same layout, checkpointing, encode chunk and
+   optimizer: a warm-up micro-step, two updates at accumulation 2 with K7
+   on, then one micro-step each with K7 on, K7 off and all plain; the same
+   checks, and that nothing outside the subset moved or asked for a gradient.
+   Then one full-finetune update at accumulation 2, for its peak memory, and
+   one VAE-decoder step on 8 frames.
 
 ``python3 chip_smoke.py --profile [DIR]`` instead builds the models and
 prints one step's device time by kind of kernel (torch.profiler; the table
@@ -71,9 +80,10 @@ from ctrlv_tpu_torch.models import (  # noqa: E402
     VAEConfig,
 )
 from ctrlv_tpu_torch.models import layers  # noqa: E402
+from ctrlv_tpu_torch.models.resnet import ResnetBlock2D  # noqa: E402
 from ctrlv_tpu_torch.models.transformer_st import TransformerSpatioTemporalModel  # noqa: E402
 from ctrlv_tpu_torch.ops import (  # noqa: E402
-    _build, _launch, attention, geglu_ff, group_norm, layer_norm, mha,
+    _build, _launch, attention, geglu_ff, group_norm, layer_norm, mha, resblock,
 )
 from ctrlv_tpu_torch.pipelines import (  # noqa: E402
     GUIDANCE_PAIRS,
@@ -86,6 +96,11 @@ from ctrlv_tpu_torch.train import (  # noqa: E402
     init_train_state,
     make_controlnet_train_step,
     make_optimizer,
+    make_svd_train_step,
+    make_vae_decoder_train_step,
+    split_trainable,
+    temporal_blocks_predicate,
+    vae_decoder_predicate,
 )
 
 H, W, FRAMES, CHUNK = 320, 512, 25, 8
@@ -151,6 +166,10 @@ KERNELS = {
     "geglu_ff": dict(
         name="geglu_ff", route="cuda", source="ctrlv_tpu_torch/csrc/geglu_ff.cu",
         replaces="ctrlv_tpu/ops/geglu_ff.py:226",
+    ),
+    "resblock": dict(
+        name="fused_resblock2d", route="cuda", source="ctrlv_tpu_torch/csrc/resblock.cu",
+        replaces="ctrlv_tpu/ops/resblock.py:258",
     ),
 }
 # (kernel, shapes and options, timed: a shape of one of the three paths).
@@ -237,8 +256,23 @@ KERNEL_CASES = [
     ("layer_norm", dict(shape=(16000, 640)), True),
     ("layer_norm", dict(shape=(4000, 1280)), True),
     ("layer_norm", dict(shape=(1000, 1280)), True),  # mid block
+    # K7, (N, C, H, W) of a same-channel spatial ResBlock: the Box2Video step, the
+    # training micro-step and stage 1 at level 0; the deeper levels its gate admits
+    # (the last tile of image rows is ragged at 10x16 and 5x8) at the Box2Video
+    # step's batch and at the training micro-step's; a small ragged one.
+    ("resblock", dict(shape=(50, 320, 40, 64)), True),
+    ("resblock", dict(shape=(25, 320, 40, 64)), True),
+    ("resblock", dict(shape=(250, 320, 40, 64)), True),
+    ("resblock", dict(shape=(50, 640, 20, 32)), True),
+    ("resblock", dict(shape=(50, 1280, 10, 16)), True),
+    ("resblock", dict(shape=(50, 1280, 5, 8)), True),
+    ("resblock", dict(shape=(25, 640, 20, 32)), True),
+    ("resblock", dict(shape=(25, 1280, 10, 16)), True),
+    ("resblock", dict(shape=(25, 1280, 5, 8)), True),
+    ("resblock", dict(shape=(3, 320, 11, 16)), False),  # 8 image rows a tile: 3 of the second
 ]
-# One case a kernel for the gradient check: a shape of the training micro-step.
+# A case a kernel for the gradient check: a shape of the training micro-step
+# (K7 at its first level and at its deepest, where the last tile is ragged).
 GRAD_CASES = [
     ("mha", dict(shape=(25, 2560, 320), heads=5)),
     ("small_mha", dict(shape=(2560, 25, 320), heads=5)),
@@ -248,6 +282,8 @@ GRAD_CASES = [
     ("layer_norm", dict(shape=(64000, 320))),
     ("geglu_ff", dict(shape=(64000, 320))),
     ("geglu_ff", dict(shape=(16000, 640), ln=True)),
+    ("resblock", dict(shape=(25, 320, 40, 64))),
+    ("resblock", dict(shape=(25, 1280, 5, 8))),
 ]
 # Launches of the attention kernels in one forward at full width: K1 at the
 # 2560-token level; K8 at 640 and 160 tokens; the temporal kernel at the three
@@ -320,6 +356,30 @@ def make_case(kind: str, spec: dict, gen):
         return torch.randn(shape, generator=gen, device=DEVICE, dtype=torch.bfloat16)
 
     shape = spec["shape"]
+    if kind == "resblock":
+        n, c, h, w = shape
+        groups = spec.get("groups", 32)
+
+        def vec(scale, shift=0.0):
+            return (shift + scale * torch.randn(c, generator=gen, device=DEVICE)).bfloat16()
+
+        def weight():
+            return randn((c, c, 3, 3)) * (9 * c) ** -0.5
+
+        ops = [1.5 * randn(shape) + 0.3, vec(0.2, 1.0), vec(0.1), weight(), vec(0.1),
+               randn((n, c)), vec(0.2, 1.0), vec(0.1), weight(), vec(0.1)]
+        fn = lambda *t: resblock.fused_resblock2d(*t, groups, 1e-5)  # noqa: E731
+        fn_plain = lambda *t: resblock.fused_resblock2d_plain(*t, groups, 1e-5)  # noqa: E731
+
+        def fn_lib(x, g1, b1, w1, wb1, temb, g2, b2, w2, wb2):  # the unfused arithmetic, bf16
+            y = F.silu(F.group_norm(x, groups, g1, b1, 1e-5))
+            y = F.conv2d(y, w1, wb1, padding=1) + temb[:, :, None, None]
+            y = F.silu(F.group_norm(y, groups, g2, b2, 1e-5))
+            return F.conv2d(y, w2, wb2, padding=1) + x
+
+        closures = [lambda f=f: f(*ops) for f in (fn, fn_plain, fn_lib)]
+        nbytes = 2 * (2 * n * c * h * w + 2 * 9 * c * c + 6 * c + n * c)
+        return (*closures, nbytes, 2 * 2 * n * h * w * 9 * c * c, PEAK_BF16, (fn, fn_plain, ops))
     if kind == "geglu_ff":
         m, c = shape
         inner, ln = 4 * c, spec.get("ln", False)
@@ -491,6 +551,20 @@ def phase_kernels() -> dict:
         print(f"[kernels] geglu_ff at C = 1280, which its gate refuses, raises when forced: {exc}")
     else:
         fail("K6 did not raise on a shape its gate refuses")
+    # The same for K7: a skip-connected up-block width, and a W that does not divide a tile.
+    for shape in ((2, 960, 20, 32), (2, 320, 8, 24)):
+        if resblock._plan(*shape, 32, torch.bfloat16) is not None:
+            fail(f"K7's gate admits {shape}")
+        n, c = shape[:2]
+        try:
+            resblock.fused_resblock2d(
+                zeros(*shape), *[zeros(c)] * 2, zeros(c, c, 3, 3), zeros(c), zeros(n, c),
+                *[zeros(c)] * 2, zeros(c, c, 3, 3), zeros(c))
+        except ValueError as exc:
+            print(f"[kernels] resblock at {shape}, which its gate refuses, raises when forced: "
+                  f"{exc}")
+        else:
+            fail("K7 did not raise on a shape its gate refuses")
     return results
 
 
@@ -601,6 +675,28 @@ def count_routed_ff(net) -> int:
                for m in net.modules())
 
 
+def routed_resblocks(block, n: int, h: int, w: int) -> int:
+    """Spatial ResBlocks of ``block`` that go to K7 when it is on, at a batch of
+    n frames of h x w: same-channel, with a time embedding, and admitted by the gate."""
+    return sum(isinstance(m, ResnetBlock2D) and m.conv_shortcut is None
+               and m.time_emb_proj is not None
+               and resblock._plan(n, m.conv1.in_channels, h, w, m.norm1.num_groups,
+                                  torch.bfloat16) is not None
+               for m in block.modules())
+
+
+def blocks_by_level(net):
+    """(block, level) over a UNet's or a ControlNet's down, mid and up blocks;
+    level i works on latents of 1 / 2**i the size."""
+    top = len(net.down_blocks) - 1
+    return ([(b, i) for i, b in enumerate(net.down_blocks)] + [(net.mid_block, top)]
+            + [(b, top - i) for i, b in enumerate(getattr(net, "up_blocks", ()))])
+
+
+def routed_resblocks_of(net, n: int, h: int, w: int) -> int:
+    return sum(routed_resblocks(b, n, h >> lvl, w >> lvl) for b, lvl in blocks_by_level(net))
+
+
 def decode_calls(frames: int, chunk: int, max_frames) -> int:
     """Calls of the VAE decoder that decode_latents makes for one batch."""
     n_full, rem = divmod(frames, chunk)
@@ -653,8 +749,8 @@ def make_step(models):
 def phase_step(models) -> None:
     """One full-width ControlNet+UNet step: all six default kernels' worth
     (the frames-major layout puts K3 in K2's place), each newer kernel
-    switched off in turn, K6 (off by default) switched on, and all plain. In
-    turns, forwards and backwards."""
+    switched off in turn, K6 and K7 (off by default) switched on in turn, and
+    all plain. In turns, forwards and backwards."""
     step, h, w = make_step(models)
     nets = (models["ctrl"], models["unet"])
 
@@ -667,6 +763,7 @@ def phase_step(models) -> None:
         layer_norm.set_fused_layer_norm(variant != "K5 off")
         attention.set_attention_impl("xla" if variant == "K8 off" else "auto")
         geglu_ff.set_fused_geglu_ff(variant == "K6 on")
+        resblock.set_fused_resblock(variant == "K7 on")
         try:
             if variant == "all plain":
                 with _launch.plain_kernels():
@@ -678,9 +775,10 @@ def phase_step(models) -> None:
             layer_norm.set_fused_layer_norm(True)
             attention.set_attention_impl("auto")
             geglu_ff.set_fused_geglu_ff(False)
+            resblock.set_fused_resblock(False)
 
     variants = ("all kernels", "K3 off", "K4 off", "K4 split", "K5 off", "K8 off", "K6 on",
-                "all plain")
+                "K7 on", "all plain")
     _launch.reset_launch_counts()
     preds = {v: run(v, step) for v in ("all kernels", "all plain")}
     torch.cuda.synchronize()
@@ -698,6 +796,17 @@ def phase_step(models) -> None:
     if counts_k6 != expect or not expect["geglu_ff"]:
         fail(f"one step with K6 on launched {counts_k6}, expected {expect}")
     rel_k6 = ((preds["K6 on"] - preds["all plain"]).norm() / preds["all plain"].norm()).item()
+    # K7 on: one launch for every ResBlock its gate admits, whose two norms K4 no longer sees
+    _launch.reset_launch_counts()
+    preds["K7 on"] = run("K7 on", step)
+    torch.cuda.synchronize()
+    counts_k7 = dict(_launch.LAUNCHES)
+    routed = {k: routed_resblocks_of(models[k], 2 * FRAMES, h, w) for k in ("ctrl", "unet")}
+    expect_k7 = dict(expect, geglu_ff=0, resblock=sum(routed.values()),
+                     group_norm=expect["group_norm"] - 2 * sum(routed.values()))
+    if counts_k7 != expect_k7 or not expect_k7["resblock"]:
+        fail(f"one step with K7 on launched {counts_k7}, expected {expect_k7}")
+    rel_k7 = ((preds["K7 on"] - preds["all plain"]).norm() / preds["all plain"].norm()).item()
 
     samples = {v: [] for v in variants}
     for order in (variants, variants[::-1]):
@@ -717,8 +826,13 @@ def phase_step(models) -> None:
     print(f"[step] K6 on vs all plain: rel_l2={rel_k6:.3e}; {counts_k6['geglu_ff']} launches of "
           f"geglu_ff a step (the feed-forwards at C = 320 and 640; C = 1280 by the gate to the "
           f"unfused path)", flush=True)
-    if not (torch.isfinite(pred).all() and rel <= STEP_TOL and rel_k6 <= STEP_TOL):
-        fail(f"kernel step differs from the plain step: rel_l2 {rel}, with K6 {rel_k6}")
+    print(f"[step] K7 on vs all plain: rel_l2={rel_k7:.3e}; {counts_k7['resblock']} launches of "
+          f"resblock a step ({routed['unet']} same-channel spatial ResBlocks of the UNet, "
+          f"{routed['ctrl']} of the ControlNet; every up-block ResBlock has a 1x1 shortcut and "
+          f"takes the unfused path), {counts_k7['group_norm']} of group_norm", flush=True)
+    if not (torch.isfinite(pred).all() and max(rel, rel_k6, rel_k7) <= STEP_TOL):
+        fail(f"kernel step differs from the plain step: rel_l2 {rel}, with K6 {rel_k6}, with K7 "
+             f"{rel_k7}")
 
 
 @torch.no_grad()
@@ -798,7 +912,7 @@ def phase_small_reference() -> None:
           f"{res['best_guidance']} vs {res_ref['best_guidance']}, miou {res['miou']:.4f} vs "
           f"{res_ref['miou']:.4f}, video mean_abs={mean_err:.3e} max_abs={max_err:.3e}, "
           f"launches {counts}", flush=True)
-    if any(v == 0 for k, v in counts.items() if k != "geglu_ff"):  # K6 is off by default
+    if any(v == 0 for k, v in counts.items() if k not in ("geglu_ff", "resblock")):  # off by default
         fail(f"small overall did not reach every kernel: {counts}")
     if not (torch.isfinite(lat).all() and rel <= SMALL_LATENT_TOL):
         fail("small stage-1 latents on the card differ from their f32 reference")
@@ -959,40 +1073,167 @@ class KeepGradients:
         return {"grads": grads}
 
 
-def train_expected_launches(nets, batch: int, tokens: int, encoder_calls: int, k6: bool) -> dict:
+def train_expected_launches(nets, block_runs, batch: int, lat_hw, encoder_calls: int,
+                            k6: bool = False, k7: bool = False) -> dict:
     """Launches of one training micro-step in the "seq" layout with block
-    checkpointing. A checkpointed block that carries a graph runs its forward
-    twice; the frozen UNet's down and mid blocks carry none (the ControlNet's
-    residuals join the skip connections and the mid block's output) and run
-    once, as do the UNet's last norm, the VAE encoder and CLIP. Level i has tokens / 4**i tokens a frame; the
-    spatial attention takes K1 from 1024 tokens and K8 from 128, the temporal
-    one K2 from 256 pixels in the batch."""
+    checkpointing. ``block_runs`` lists (block, level, forwards) for the UNet's
+    and the ControlNet's blocks: a checkpointed block that carries a graph runs
+    its forward twice, one that carries none runs once, as do the UNet's last
+    norm, the VAE encoder and CLIP. Level i has 1 / 4**i of the latent's tokens
+    a frame; the spatial attention takes K1 from 1024 tokens and K8 from 128, the
+    temporal one K2 from 256 pixels in the batch; a ResBlock that K7 takes
+    launches no K4 for its two norms."""
     exp = dict.fromkeys(_launch.LAUNCHES, 0)
-
-    def add(block, level: int, runs: int):
-        s = tokens // 4**level
+    h, w = lat_hw
+    for block, level, runs in block_runs:
+        s = (h * w) // 4**level
         n_tr = len(getattr(block, "attentions", ()))
-        exp["group_norm"] += runs * count_modules(block, layers.GroupNorm)
+        routed = routed_resblocks(block, batch * FRAMES, h >> level, w >> level) if k7 else 0
+        exp["group_norm"] += runs * (count_modules(block, layers.GroupNorm) - 2 * routed)
+        exp["resblock"] += runs * routed
         exp["layer_norm"] += runs * count_modules(block, layers.LayerNorm)
         exp["mha"] += runs * n_tr * (s >= 1024)
         exp["flash"] += runs * n_tr * (128 <= s < 1024)
         exp["small_mha"] += runs * n_tr * (batch * s >= 256)
         exp["geglu_ff"] += runs * count_routed_ff(block) * k6
-
-    unet, ctrl = nets["unet"], nets["ctrl"]
-    top = len(unet.down_blocks) - 1
-    for i, block in enumerate(ctrl.down_blocks):
-        add(block, i, 2)
-    add(ctrl.mid_block, top, 2)
-    for i, block in enumerate(unet.down_blocks):
-        add(block, i, 1)
-    add(unet.mid_block, top, 1)
-    for i, block in enumerate(unet.up_blocks):
-        add(block, top - i, 2)
     exp["group_norm"] += 1  # the UNet's conv_norm_out
     exp["group_norm"] += encoder_calls * count_modules(nets["vae"].encoder, layers.GroupNorm)
     exp["layer_norm"] += count_modules(nets["clip"], layers.LayerNorm)
     return exp
+
+
+def check_metrics(name: str, metrics) -> tuple:
+    loss, norm = metrics["loss"].item(), metrics["grad_norm"].item()
+    if not (np.isfinite(loss) and loss > 0 and np.isfinite(norm) and norm > 0):
+        fail(f"{name}: loss {loss}, grad norm {norm}")
+    return loss, norm
+
+
+def against_plain(result: dict, ref_name: str = "all plain") -> None:
+    """Adds each variant's loss and gradients relative to the all-plain run's."""
+    ref = result[ref_name]
+    den = sum(float(g.float().square().sum()) for g in ref["grads"].values())
+    for variant, res in result.items():
+        if variant == ref_name:
+            continue
+        num = sum(float((res["grads"][k].float() - g.float()).square().sum())
+                  for k, g in ref["grads"].items())
+        res["grad_rel"] = (num / den) ** 0.5
+        res["loss_rel"] = abs(res["loss"] - ref["loss"]) / abs(ref["loss"])
+        if res["loss_rel"] > TRAIN_LOSS_TOL or res["grad_rel"] > TRAIN_GRAD_TOL:
+            fail(f"training micro-step with {variant} differs from all plain: "
+                 f"{res['loss_rel']}, {res['grad_rel']}")
+
+
+def make_micro_step(clips, bbox, draws, switch, on_variant: str):
+    """A runner of one training micro-step on the batch under a variant's
+    switches: ``on_variant`` turns ``switch`` (a kernel that is off by
+    default) on, "all plain" selects every plain version.
+    ``micro_step(step_fn, state, variant) -> (state, metrics, seconds, launches)``."""
+
+    def micro_step(step_fn, st, variant: str):
+        switch(variant == on_variant)
+        torch.cuda.synchronize()
+        _launch.reset_launch_counts()
+        t1 = time.perf_counter()
+        try:
+            if variant == "all plain":
+                with _launch.plain_kernels():
+                    st, metrics = step_fn(st, clips, bbox, draws=draws)
+            else:
+                st, metrics = step_fn(st, clips, bbox, draws=draws)
+        finally:
+            switch(False)
+        torch.cuda.synchronize()
+        return st, metrics, time.perf_counter() - t1, dict(_launch.LAUNCHES)
+
+    return micro_step
+
+
+def run_updates(tag: str, micro_step, step, state, tx, variant: str, expect: dict):
+    """Two optimizer updates at accumulation ACCUM under ``variant``, the main
+    path's run of a training phase: every micro-step's loss, launches and
+    which parameters moved are checked. Returns (state, the launches summed,
+    s/micro-step without the updates, s/update, peak GiB)."""
+    update_secs = []
+    inner_update = tx.inner.update
+
+    def timed_update(*args):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        out = inner_update(*args)
+        torch.cuda.synchronize()
+        update_secs.append(time.perf_counter() - t1)
+        return out
+
+    tx.inner.update = timed_update
+    torch.cuda.reset_peak_memory_stats()
+    before = {k: p.detach().clone() for k, p in state.params.items()}
+    path_counts = dict.fromkeys(_launch.LAUNCHES, 0)
+    step_secs = []
+    for i in range(2 * ACCUM):
+        state, metrics, secs, counts = micro_step(step, state, variant)
+        loss, norm = check_metrics(f"micro-step {i}", metrics)
+        moved = sum(not torch.equal(p.detach(), before[k]) for k, p in state.params.items())
+        updates = (i + 1) % ACCUM == 0
+        print(f"[{tag}] micro-step {i}: {secs:.3f} s, loss {loss:.4f}, grad norm {norm:.4f}, "
+              f"{moved} of {len(before)} parameter tensors moved, launches {counts}", flush=True)
+        if counts != expect:
+            fail(f"micro-step {i} launched {counts}, expected {expect}")
+        if updates != (moved > 0):
+            fail(f"micro-step {i}: {moved} parameter tensors moved, update due: {updates}")
+        if updates:
+            before = {k: p.detach().clone() for k, p in state.params.items()}
+        step_secs.append(secs - (update_secs[-1] if updates else 0.0))
+        for k, v in counts.items():
+            path_counts[k] += v
+    tx.inner.update = inner_update
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    if state.step != 2 * ACCUM or state.opt_state["gradient_step"] != 2:
+        fail(f"train state after the updates: step {state.step}, "
+             f"{state.opt_state['gradient_step']}")
+    return state, path_counts, step_secs, update_secs, peak
+
+
+def run_variants(micro_step, probe, probe_state, variants, off_expect: dict) -> dict:
+    """One micro-step a variant from the same parameters and draws with the
+    gradients kept, then two more timings a variant, in turns backwards and
+    forwards. The second variant is the default configuration, the last all
+    plain; loss and gradients are held against all plain."""
+    result = {}
+    for variant in variants:
+        st, metrics, secs, counts = micro_step(probe, probe_state, variant)
+        loss, norm = check_metrics(variant, metrics)
+        result[variant] = dict(loss=loss, norm=norm, secs=[secs], counts=counts,
+                               grads=st.opt_state["grads"])
+        st.opt_state = {}
+    for order in (variants[::-1], variants):
+        for variant in order:
+            st, _, secs, _ = micro_step(probe, probe_state, variant)
+            st.opt_state = {}
+            result[variant]["secs"].append(secs)
+    default, plain = result[variants[1]], result["all plain"]
+    if default["counts"] != off_expect or any(plain["counts"].values()):
+        fail(f"{variants[1]} launched {default['counts']}, expected {off_expect}; all plain "
+             f"launched {plain['counts']}")
+    against_plain(result)
+    return result
+
+
+def report_variants(tag: str, title: str, result: dict, updates, card: str) -> None:
+    _, _, step_secs, update_secs, peak = updates
+    on, off, plain = result
+    print(f"[{tag}] {title}: s/micro-step, median of three taken in turns: "
+          + ", ".join(f"{v} {np.median(result[v]['secs']):.3f}" for v in result) + " (the three: "
+          + "; ".join(", ".join(f"{x:.3f}" for x in result[v]["secs"]) for v in result)
+          + f"); the {2 * ACCUM} accumulated micro-steps with {on}, without their updates, "
+          f"{', '.join(f'{x:.3f}' for x in step_secs)} s; optimizer update "
+          f"{', '.join(f'{x:.3f}' for x in update_secs)} s; max_memory_allocated {peak:.2f} GiB; "
+          f"card {card}", flush=True)
+    print(f"[{tag}] against all plain (loss {result[plain]['loss']:.5f}, grad norm "
+          f"{result[plain]['norm']:.4f}): " + "; ".join(
+              f"{v} loss_rel={result[v]['loss_rel']:.3e} grad_rel_l2={result[v]['grad_rel']:.3e}"
+              for v in (on, off)) + f" (tol {TRAIN_LOSS_TOL}, {TRAIN_GRAD_TOL})", flush=True)
 
 
 def phase_train(models, card: str) -> dict:
@@ -1035,31 +1276,13 @@ def phase_train(models, card: str) -> dict:
         "dropout_u": torch.tensor([0.9], device=DEVICE),  # keeps both conditionings
     }
     encoder_calls = 2 * -(-FRAMES // ENCODE_CHUNK) + 1
-    tokens = lat[0] * lat[1]
+    # the ControlNet's blocks and the UNet's up blocks carry a graph; the frozen
+    # UNet's down and mid blocks carry none: the residuals join after them
+    up = {id(b) for b in unet.up_blocks}
+    block_runs = ([(b, lvl, 2) for b, lvl in blocks_by_level(ctrl)]
+                  + [(b, lvl, 2 if id(b) in up else 1) for b, lvl in blocks_by_level(unet)])
 
-    def micro_step(step_fn, st, variant: str):
-        """One micro-step under a variant's switches: (state, metrics, seconds, launches)."""
-        geglu_ff.set_fused_geglu_ff(variant == "K6 on")
-        torch.cuda.synchronize()
-        _launch.reset_launch_counts()
-        t1 = time.perf_counter()
-        try:
-            if variant == "all plain":
-                with _launch.plain_kernels():
-                    st, metrics = step_fn(st, clips, bbox, draws=draws)
-            else:
-                st, metrics = step_fn(st, clips, bbox, draws=draws)
-        finally:
-            geglu_ff.set_fused_geglu_ff(False)
-        torch.cuda.synchronize()
-        return st, metrics, time.perf_counter() - t1, dict(_launch.LAUNCHES)
-
-    def check_metrics(name: str, metrics) -> tuple:
-        loss, norm = metrics["loss"].item(), metrics["grad_norm"].item()
-        if not (np.isfinite(loss) and loss > 0 and np.isfinite(norm) and norm > 0):
-            fail(f"{name}: loss {loss}, grad norm {norm}")
-        return loss, norm
-
+    micro_step = make_micro_step(clips, bbox, draws, geglu_ff.set_fused_geglu_ff, "K6 on")
     frozen = {k: {n: p.detach().clone() for n, p in nets[k].state_dict().items()}
               for k in ("unet", "vae", "clip")}
     probe_state = init_train_state(ctrl, probe_tx)
@@ -1068,71 +1291,12 @@ def phase_train(models, card: str) -> dict:
           flush=True)
 
     # Two optimizer updates at accumulation 2, K6 on: the main path's run.
-    update_secs = []
-    inner_update = tx.inner.update
-
-    def timed_update(*args):
-        torch.cuda.synchronize()
-        t1 = time.perf_counter()
-        out = inner_update(*args)
-        torch.cuda.synchronize()
-        update_secs.append(time.perf_counter() - t1)
-        return out
-
-    tx.inner.update = timed_update
-    expect = train_expected_launches(nets, 1, tokens, encoder_calls, k6=True)
-    torch.cuda.reset_peak_memory_stats()
-    before = {k: p.detach().clone() for k, p in state.params.items()}
-    path_counts = dict.fromkeys(_launch.LAUNCHES, 0)
-    step_secs = []
-    for i in range(2 * ACCUM):
-        state, metrics, secs, counts = micro_step(step, state, "K6 on")
-        loss, norm = check_metrics(f"micro-step {i}", metrics)
-        moved = sum(not torch.equal(p.detach(), before[k]) for k, p in state.params.items())
-        updates = (i + 1) % ACCUM == 0
-        print(f"[train] micro-step {i}: {secs:.3f} s, loss {loss:.4f}, grad norm {norm:.4f}, "
-              f"{moved} of {len(before)} parameter tensors moved, launches {counts}", flush=True)
-        if counts != expect:
-            fail(f"micro-step {i} launched {counts}, expected {expect}")
-        if updates != (moved > 0):
-            fail(f"micro-step {i}: {moved} parameter tensors moved, update due: {updates}")
-        if updates:
-            before = {k: p.detach().clone() for k, p in state.params.items()}
-        step_secs.append(secs - (update_secs[-1] if updates else 0.0))
-        for k, v in counts.items():
-            path_counts[k] += v
-    tx.inner.update = inner_update
-    peak = torch.cuda.max_memory_allocated() / 2**30
-    if state.step != 2 * ACCUM or state.opt_state["gradient_step"] != 2:
-        fail(f"train state after the updates: step {state.step}, {state.opt_state['gradient_step']}")
-    del before
-
-    # One micro-step a variant from the same parameters and draws, gradients kept.
-    result = {}
-    for variant in ("K6 on", "K6 off", "all plain"):
-        st, metrics, secs, counts = micro_step(probe, probe_state, variant)
-        loss, norm = check_metrics(variant, metrics)
-        result[variant] = dict(loss=loss, norm=norm, secs=[secs], counts=counts,
-                               grads=st.opt_state["grads"])
-        st.opt_state = {}
-    # Two more timings a variant, in turns backwards and forwards.
-    for order in (tuple(result)[::-1], tuple(result)):
-        for variant in order:
-            st, _, secs, _ = micro_step(probe, probe_state, variant)
-            st.opt_state = {}
-            result[variant]["secs"].append(secs)
-    off_expect = train_expected_launches(nets, 1, tokens, encoder_calls, k6=False)
-    if result["K6 off"]["counts"] != off_expect or any(result["all plain"]["counts"].values()):
-        fail(f"K6 off launched {result['K6 off']['counts']}, expected {off_expect}; all plain "
-             f"launched {result['all plain']['counts']}")
+    expect = train_expected_launches(nets, block_runs, 1, lat[:2], encoder_calls, k6=True)
+    updates = run_updates("train", micro_step, step, state, tx, "K6 on", expect)
+    off_expect = train_expected_launches(nets, block_runs, 1, lat[:2], encoder_calls)
+    result = run_variants(micro_step, probe, probe_state, ("K6 on", "K6 off", "all plain"),
+                          off_expect)
     ref = result["all plain"]
-    for variant in ("K6 on", "K6 off"):
-        res = result[variant]
-        num = sum(float((res["grads"][k].float() - g.float()).square().sum())
-                  for k, g in ref["grads"].items())
-        den = sum(float(g.float().square().sum()) for g in ref["grads"].values())
-        res["grad_rel"] = (num / den) ** 0.5
-        res["loss_rel"] = abs(res["loss"] - ref["loss"]) / abs(ref["loss"])
     zero_convs = [k for k in ref["grads"] if k.startswith(("controlnet_down_blocks",
                                                            "controlnet_mid_block"))]
     dead = [k for k in zero_convs if not float(result["K6 on"]["grads"][k].abs().max()) > 0]
@@ -1143,28 +1307,154 @@ def phase_train(models, card: str) -> dict:
         if changed or any(p.requires_grad for p in nets[k].parameters()):
             fail(f"the frozen {k} changed: {changed[:3]}")
 
-    k6, off = result["K6 on"], result["K6 off"]
-    print(f"[train] ControlNet micro-step, 1x{FRAMES} frames at {W}x{H}, seq layout, block "
-          f"checkpointing, encode chunk {ENCODE_CHUNK}: s/micro-step, median of three taken in "
-          f"turns: K6 on {np.median(k6['secs']):.3f}, K6 off {np.median(off['secs']):.3f}, all "
-          f"plain {np.median(ref['secs']):.3f} (the three: "
-          + "; ".join(", ".join(f"{x:.3f}" for x in result[v]["secs"]) for v in result)
-          + f"); the {2 * ACCUM} accumulated micro-steps with K6 on, without their updates, "
-          f"{', '.join(f'{x:.3f}' for x in step_secs)} s; optimizer update "
-          f"{', '.join(f'{x:.3f}' for x in update_secs)} s; max_memory_allocated {peak:.2f} GiB; "
-          f"card {card}", flush=True)
-    print(f"[train] against all plain (loss {ref['loss']:.5f}, grad norm {ref['norm']:.4f}): "
-          f"K6 on loss_rel={k6['loss_rel']:.3e} grad_rel_l2={k6['grad_rel']:.3e}; K6 off "
-          f"loss_rel={off['loss_rel']:.3e} grad_rel_l2={off['grad_rel']:.3e} (tol "
-          f"{TRAIN_LOSS_TOL}, {TRAIN_GRAD_TOL}); {len(zero_convs)} zero-conv tensors all with a "
-          f"gradient; UNet, VAE and CLIP bit-identical", flush=True)
-    for variant in ("K6 on", "K6 off"):
-        res = result[variant]
-        if res["loss_rel"] > TRAIN_LOSS_TOL or res["grad_rel"] > TRAIN_GRAD_TOL:
-            fail(f"training micro-step with {variant} differs from all plain: {res['loss_rel']}, "
-                 f"{res['grad_rel']}")
+    report_variants("train", f"ControlNet micro-step, 1x{FRAMES} frames at {W}x{H}, seq layout, "
+                    f"block checkpointing, encode chunk {ENCODE_CHUNK}", result, updates, card)
+    print(f"[train] {len(zero_convs)} zero-conv tensors all with a gradient; UNet, VAE and CLIP "
+          f"bit-identical", flush=True)
+    path_counts = updates[1]
     if not path_counts["geglu_ff"]:
         fail("the training path did not launch K6")
+    return path_counts
+
+
+def phase_train_svd(models, card: str) -> dict:
+    """The stage-1 training step at full width in the temporal regime (this
+    slice's main path): the bbox predictor (``predict_bbox``, three
+    conditioning frames), only the temporal transformer blocks trained
+    (``partitioned``), 1 x 25 frames at 512x320, device-random clips, "seq"
+    layout, block checkpointing, encode chunk 5, AdamW (bf16 first moment, lr
+    1e-5) under accumulation 2, K7 on. Then one full-finetune update at the
+    same accumulation, to read its peak memory, and one VAE-decoder step."""
+    t0 = time.perf_counter()
+    with torch.device(DEVICE):
+        unet = UNetSpatioTemporalConditionModel(UNET_CONFIG, gradient_checkpointing=True)
+    unet.to(torch.bfloat16).load_state_dict(models["unet"].state_dict())
+    unet.train()
+    vae, clip = models["vae"], models["clip"]
+    nets = dict(unet=unet, vae=vae, clip=clip)
+    trainable = split_trainable(unet, temporal_blocks_predicate)
+    opt_kw = dict(learning_rate=1e-5, nan_guard_steps=0, mu_dtype="bfloat16")
+    step_kw = dict(predict_bbox=True, num_cond_bbox_frames=3, conditioning_dropout_prob=0.1,
+                   encode_chunk=ENCODE_CHUNK)
+    tx = MultiSteps(make_optimizer(**opt_kw), ACCUM)
+    step = make_svd_train_step(unet, vae, clip, tx, partitioned=True, **step_kw)
+    state = init_train_state(trainable, tx)
+    probe_tx = KeepGradients()
+    probe = make_svd_train_step(unet, vae, clip, probe_tx, partitioned=True, **step_kw)
+    probe_state = init_train_state(trainable, probe_tx)
+    n_train = sum(p.numel() for p in trainable.values())
+    print(f"[train_svd] UNet built in {time.perf_counter() - t0:.1f} s; {n_train / 1e9:.3f} B "
+          f"trainable parameters in {len(trainable)} tensors of the temporal transformer blocks, "
+          f"of {sum(p.numel() for p in unet.parameters()) / 1e9:.3f} B in "
+          f"{len(list(unet.parameters()))}", flush=True)
+
+    gen = torch.Generator(device=DEVICE).manual_seed(8)
+    scale = VAE_CONFIG.spatial_scale
+    lat = (H // scale, W // scale, 4)
+    clips, bbox = (2 * torch.rand((1, FRAMES, H, W, 3), generator=gen, device=DEVICE) - 1
+                   for _ in range(2))
+    normal = lambda *shape: torch.randn(shape, generator=gen, device=DEVICE)  # noqa: E731
+    draws = {
+        "latent_noise": normal(FRAMES, *lat), "rgb_init_noise": normal(1, *lat),
+        "noise": normal(1, FRAMES, *lat), "sigma_idx": torch.tensor([500], device=DEVICE),
+        "dropout_u": torch.tensor([0.9], device=DEVICE),  # keeps both conditionings
+    }
+    # the bbox clip in chunks and the first RGB frame; every block carries a graph
+    # from the first temporal block on, so each runs twice
+    encoder_calls = -(-FRAMES // ENCODE_CHUNK) + 1
+    block_runs = [(b, lvl, 2) for b, lvl in blocks_by_level(unet)]
+
+    micro_step = make_micro_step(clips, bbox, draws, resblock.set_fused_resblock, "K7 on")
+    frozen = {k: {n: p.detach().clone() for n, p in nets[k].named_parameters()
+                  if not (k == "unet" and temporal_blocks_predicate(n))}
+              for k in nets}
+    _, metrics, secs, _ = micro_step(probe, probe_state, "K7 on")
+    print(f"[train_svd] warm-up micro-step {secs:.3f} s, loss "
+          f"{check_metrics('warm-up', metrics)[0]:.4f}", flush=True)
+
+    # Two optimizer updates at accumulation 2, K7 on: the main path's run.
+    expect = train_expected_launches(nets, block_runs, 1, lat[:2], encoder_calls, k7=True)
+    updates = run_updates("train_svd", micro_step, step, state, tx, "K7 on", expect)
+    state, path_counts = updates[:2]
+    for k in nets:
+        changed = [n for n, p in nets[k].named_parameters()
+                   if n in frozen[k] and not torch.equal(p.detach(), frozen[k][n])]
+        if changed:
+            fail(f"frozen parameters of the {k} changed: {changed[:3]}")
+    if any(p.requires_grad != temporal_blocks_predicate(n) for n, p in unet.named_parameters()):
+        fail("a parameter outside the temporal transformer blocks asks for a gradient")
+    del frozen
+
+    off_expect = train_expected_launches(nets, block_runs, 1, lat[:2], encoder_calls)
+    result = run_variants(micro_step, probe, probe_state, ("K7 on", "K7 off", "all plain"),
+                          off_expect)
+    # the query and key of a one-token cross-attention, and the norm in front of
+    # it, are not reached by the loss; every other trained tensor must be
+    unreached = (".attn2.to_q.", ".attn2.to_k.", ".norm2.")
+    grads = result["K7 on"]["grads"]
+    dead = [k for k, g in grads.items()
+            if not any(u in k for u in unreached) and not float(g.abs().max()) > 0]
+    stray = [k for k, g in grads.items()
+             if any(u in k for u in unreached) and float(g.abs().max()) > 0]
+    if dead or stray or set(grads) != set(trainable):
+        fail(f"temporal parameters without a gradient: {dead[:3]}; unreached ones with one: "
+             f"{stray[:3]}")
+
+    report_variants("train_svd", f"temporal-regime micro-step, 1x{FRAMES} frames at {W}x{H}, "
+                    f"predict_bbox, seq layout, block checkpointing, encode chunk {ENCODE_CHUNK}",
+                    result, updates, card)
+    print(f"[train_svd] {len(grads) - sum(any(u in k for u in unreached) for k in grads)} reached "
+          f"tensors all with a gradient; the rest of the UNet, the VAE and CLIP bit-identical",
+          flush=True)
+    if not path_counts["resblock"]:
+        fail("the stage-1 training path did not launch K7")
+    del result, grads, probe_state, state, trainable, updates
+    torch.cuda.empty_cache()
+
+    # Full finetune: every UNet parameter, its gradient, the accumulator and two moments.
+    full_tx = MultiSteps(make_optimizer(**opt_kw), ACCUM)
+    full_step = make_svd_train_step(unet, vae, clip, full_tx, **step_kw)
+    torch.cuda.reset_peak_memory_stats()
+    full_state = init_train_state(unet.requires_grad_(True), full_tx)
+    full_secs = []
+    for i in range(ACCUM):
+        full_state, metrics, secs, _ = micro_step(full_step, full_state, "K7 off")
+        check_metrics(f"full finetune micro-step {i}", metrics)
+        full_secs.append(secs)
+    full_peak = torch.cuda.max_memory_allocated() / 2**30
+    total = torch.cuda.get_device_properties(0).total_memory / 2**30
+    print(f"[train_svd] full finetune, {len(full_state.params)} tensors, AdamW with a bf16 first "
+          f"moment at accumulation {ACCUM}: micro-step {full_secs[0]:.3f} s, micro-step with its "
+          f"update {full_secs[-1]:.3f} s, loss {metrics['loss'].item():.4f}; "
+          f"max_memory_allocated {full_peak:.2f} GiB of the card's {total:.1f}; card {card}",
+          flush=True)
+    del full_state, full_tx, full_step
+    unet.requires_grad_(False)
+    torch.cuda.empty_cache()
+
+    # VAE-decoder finetune: one step on 1 x 8 frames, a copy of the VAE.
+    vae_train = copy.deepcopy(vae)
+    vae_tx = make_optimizer(**opt_kw)
+    vae_state = init_train_state(split_trainable(vae_train, vae_decoder_predicate), vae_tx)
+    vae_step = make_vae_decoder_train_step(vae_train, vae_tx)
+    before = {k: p.detach().clone() for k, p in vae_train.named_parameters()}
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    _launch.reset_launch_counts()
+    t1 = time.perf_counter()
+    vae_state, metrics = vae_step(vae_state, clips[:, :CHUNK], generator=gen)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t1
+    loss = metrics["loss"].item()
+    moved = [k for k, p in vae_train.named_parameters() if not torch.equal(p.detach(), before[k])]
+    print(f"[train_svd] VAE-decoder step, 1x{CHUNK} frames at {W}x{H}: {secs:.3f} s, loss "
+          f"{loss:.4f}, {len(moved)} of {len(vae_state.params)} decoder tensors moved, "
+          f"max_memory_allocated {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, launches "
+          f"{dict(_launch.LAUNCHES)}", flush=True)
+    if not (np.isfinite(loss) and loss > 0 and moved):
+        fail(f"VAE-decoder step: loss {loss}, {len(moved)} tensors moved")
+    if not all(vae_decoder_predicate(k) for k in moved):
+        fail(f"VAE-decoder step moved parameters outside the decoder: {moved[:3]}")
     return path_counts
 
 
@@ -1176,6 +1466,7 @@ KERNEL_KINDS = (
     ("K4 (group_norm.cu)", ("namespace)::gn_",)),
     ("K5 (layer_norm.cu)", ("namespace)::layer_norm_kernel",)),
     ("K6 (geglu_ff.cu)", ("geglu_ff_kernel",)),
+    ("K7 (resblock.cu)", ("conv_kernel", "gn_sums_kernel", "relayout_kernel")),
     ("cuDNN NCHW<->NHWC transforms", ("nchwToNhwc", "nhwcToNchw")),
     ("convolutions (cuDNN)", ("cudnn", "implicit_gemm", "conv")),
     ("matmuls (cuBLAS)", ("nvjet", "gemm", "cutlass")),
@@ -1237,6 +1528,9 @@ def main() -> None:
     del models["unet1"]  # the stage-1 UNet is not trained
     torch.cuda.empty_cache()
     paths["train"] = phase_train(models, card)
+    del models["ctrl"]
+    torch.cuda.empty_cache()
+    paths["train_svd"] = phase_train_svd(models, card)
 
     rows = []
     for kind, meta in KERNELS.items():
@@ -1252,9 +1546,13 @@ def main() -> None:
             library_ms=float(np.mean(res["library_ms"])),
         ))
         # K1-K5 and K8 belong to the overall path, and all of them but K3 to the
-        # Box2Video and training paths ("seq" layout); K6 is on while training.
-        on = {"box2video": kind not in ("small_mha_fm", "geglu_ff"),
-              "overall": kind != "geglu_ff", "train": kind != "small_mha_fm"}
+        # Box2Video and training paths ("seq" layout); K6 is on while the ControlNet
+        # trains, K7 while stage 1 does.
+        switched = ("geglu_ff", "resblock")
+        on = {"box2video": kind not in ("small_mha_fm", *switched),
+              "overall": kind not in switched,
+              "train": kind not in ("small_mha_fm", "resblock"),
+              "train_svd": kind not in ("small_mha_fm", "geglu_ff")}
         if any((paths[name][kind] > 0) != due for name, due in on.items()):
             fail(f"{kind} was not launched on its paths: {rows[-1]['launches_by_path']}")
     print(f"[done] {time.perf_counter() - t_start:.1f} s")

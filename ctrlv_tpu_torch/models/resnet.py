@@ -2,6 +2,10 @@
 
 Counterpart of ``ctrlv_tpu/models/resnet.py``. Spatial blocks take
 (B*F, C, H, W); the temporal block takes (B, C, F, H, W).
+
+A same-channel ``ResnetBlock2D`` with a time embedding routes to the fused
+kernel of ``ops/resblock.py`` where ``set_fused_resblock`` and the shape gate
+allow; ``plain_kernels()`` sends it to that kernel's plain version.
 """
 
 from __future__ import annotations
@@ -11,6 +15,8 @@ from typing import Optional
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ..ops._launch import plain_selected
+from ..ops.resblock import fused_resblock2d, fused_resblock2d_plain, resblock_supported
 from .layers import AlphaBlender, GroupNorm
 
 
@@ -38,6 +44,14 @@ class ResnetBlock2D(nn.Module):
         )
 
     def forward(self, x, temb=None):
+        if (self.conv_shortcut is None and temb is not None and self.time_emb_proj is not None
+                and resblock_supported(*x.shape, self.norm1.num_groups, x.dtype)):
+            fn = fused_resblock2d_plain if plain_selected() else fused_resblock2d
+            return fn(
+                x, self.norm1.weight, self.norm1.bias, self.conv1.weight, self.conv1.bias,
+                self.time_emb_proj(F.silu(temb)), self.norm2.weight, self.norm2.bias,
+                self.conv2.weight, self.conv2.bias, self.norm1.num_groups, self.norm1.eps,
+            )
         h = self.conv1(self.norm1(x))
         if temb is not None and self.time_emb_proj is not None:
             h = h + self.time_emb_proj(F.silu(temb))[:, :, None, None]

@@ -32,3 +32,9 @@ from .mha import (
     small_mha_fm_supported,
     small_mha_supported,
 )
+from .resblock import (
+    fused_resblock2d,
+    fused_resblock2d_plain,
+    resblock_supported,
+    set_fused_resblock,
+)

@@ -24,7 +24,7 @@ import torch
 
 LAUNCHES = {
     "mha": 0, "small_mha": 0, "small_mha_fm": 0, "flash": 0, "group_norm": 0, "layer_norm": 0,
-    "geglu_ff": 0,
+    "geglu_ff": 0, "resblock": 0,
 }
 _plain = False
 

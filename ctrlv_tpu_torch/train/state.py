@@ -1,16 +1,24 @@
-"""Train state and the optimizer of the ControlNet regime.
+"""Train state, the trainable subsets of the three regimes and their
+optimizers.
 
-Counterpart of ``ctrlv_tpu/train/state.py`` for what that regime runs:
-global-norm clipping, AdamW with optax's update rule and an optional bf16
-first moment, the constant, linear and cosine schedules, the non-finite
-guard (``optax.apply_if_finite``) and gradient accumulation with
-``optax.MultiSteps`` semantics. ``torch.optim.AdamW`` has no ``mu_dtype``
-and another epsilon placement, hence the small optimizer here.
+Counterpart of ``ctrlv_tpu/train/state.py``: the predicates and helpers that
+pick a regime's trainable parameters (``trainable_mask``, ``split_trainable``
+and ``merge_trainable`` with ``temporal_blocks_predicate`` and
+``vae_decoder_predicate``), global-norm clipping, AdamW with optax's update
+rule and an optional bf16 first moment, Adafactor with the arguments the JAX
+factory gives optax, the constant, linear and cosine schedules, the masked
+optimizer (``optax.multi_transform`` with ``set_to_zero``), the full-then-
+masked ``scheduled_freeze``, the non-finite guard (``optax.apply_if_finite``)
+and gradient accumulation with ``optax.MultiSteps`` semantics.
+``torch.optim.AdamW`` has no ``mu_dtype`` and another epsilon placement,
+hence the small optimizers here.
 
-Parameters are updated in place; the state is a plain dictionary of
-tensors and integers. A transformation has ``init(params) -> state`` and
-``update(grads, state, params) -> state``, with ``params`` and ``grads``
-dictionaries by parameter name.
+Where the JAX package has pytrees and path tuples, the port has
+dictionaries by parameter name (``named_parameters()``) and predicates on
+that dotted name. Parameters are updated in place; the state is a plain
+dictionary of tensors and integers. A transformation has ``init(params) ->
+state`` and ``update(grads, state, params) -> state``, with ``params`` and
+``grads`` dictionaries by parameter name.
 
 Dtypes follow optax: the first moment is ``mu_dtype`` or the parameter's
 dtype, the second moment and the accumulated gradient the parameter's. The
@@ -39,6 +47,45 @@ class TrainState:
     params: Params  # the trainable parameters by name, updated in place
     opt_state: dict
     step: int  # micro-steps taken
+
+
+def named_tensors(params) -> Params:
+    """A module's parameters by name, or a copy of the dictionary given."""
+    if isinstance(params, torch.nn.Module):
+        return dict(params.named_parameters())
+    return dict(params)
+
+
+def trainable_mask(params, predicate: Callable[[str], bool]) -> Dict[str, bool]:
+    """Which parameters receive updates, by name."""
+    return {name: bool(predicate(name)) for name in named_tensors(params)}
+
+
+def temporal_blocks_predicate(name: str) -> bool:
+    """The temporal-only finetune: any parameter of a temporal transformer block."""
+    return "temporal_transformer_blocks" in name
+
+
+def vae_decoder_predicate(name: str) -> bool:
+    return name.split(".", 1)[0] == "decoder"
+
+
+def split_trainable(params, predicate: Callable[[str], bool]) -> Params:
+    """The trainable subset by name: the very tensors, not copies. Given a
+    module, its parameters are also asked for a gradient exactly where the
+    predicate holds, so that gradients and optimizer moments exist for the
+    subset only."""
+    if isinstance(params, torch.nn.Module):
+        for name, p in params.named_parameters():
+            p.requires_grad_(bool(predicate(name)))
+    return {name: p for name, p in named_tensors(params).items() if predicate(name)}
+
+
+def merge_trainable(full: Params, subset: Params) -> Params:
+    """The full dictionary with the trainable subset laid over it."""
+    merged = dict(full)
+    merged.update(subset)
+    return merged
 
 
 def _linear(init: float, end: float, steps: int) -> Callable[[int], float]:
@@ -115,7 +162,9 @@ class AdamW:
         }
 
     @torch.no_grad()
-    def update(self, grads: Params, state: dict, params: Params) -> dict:
+    def update(self, grads: Params, state: dict, params: Params, hold=frozenset()) -> dict:
+        """``hold``: names whose moments take the gradient while the parameter
+        itself stays where it is (``scheduled_freeze`` after its switch)."""
         count = state["count"] + 1
         # optax computes 1 - decay**count in f32
         bc1 = float(np.float32(1) - np.float32(self.b1) ** np.int32(count))
@@ -131,11 +180,138 @@ class AdamW:
             m, v = state["mu"][name], state["nu"][name]
             mu = _as(1 - self.b1, grads[name].dtype) * g + _as(self.b1, m.dtype) * m.float()
             nu = _as(1 - self.b2, grads[name].dtype) * g * g + _as(self.b2, v.dtype) * v.float()
-            step = (mu / bc1) / (torch.sqrt(nu / bc2) + self.eps) + self.weight_decay * p.float()
-            p.copy_(p.float() - lr * step)
+            if name not in hold:
+                step = ((mu / bc1) / (torch.sqrt(nu / bc2) + self.eps)
+                        + self.weight_decay * p.float())
+                p.copy_(p.float() - lr * step)
             state["mu"][name].copy_(mu)
             state["nu"][name].copy_(nu)
         state["count"] = count
+        return state
+
+
+def _factored_dims(shape, min_dim_size_to_factor: int):
+    """The second-largest and the largest axis, where both reach the
+    threshold; else None (optax's rule, ties broken as numpy's argsort does)."""
+    if len(shape) < 2:
+        return None
+    order = np.argsort(shape)
+    if shape[order[-2]] < min_dim_size_to_factor:
+        return None
+    return int(order[-2]), int(order[-1])
+
+
+class Adafactor:
+    """clip_by_global_norm, then ``optax.adafactor`` as the JAX factory calls
+    it: factored second moments for leaves with two axes of 128 or more, the
+    decay 1 - (t + 1)^-0.8, per-leaf RMS clipping at 1.0, no parameter-scale
+    multiplication, no momentum, the learning rate, then the weight decay
+    (added after the learning rate, so it is not scaled by it). ``eps`` is
+    the factory's ``adam_epsilon``, which takes the place of Adafactor's own
+    1e-30 beside the squared gradient: the reference's quirk, kept.
+
+    A factored leaf keeps ``v_row`` (its shape without the largest axis) and
+    ``v_col`` (without the second largest) in place of a full ``v``."""
+
+    def __init__(self, schedule, eps, weight_decay, max_grad_norm, decay_rate: float = 0.8,
+                 min_dim_size_to_factor: int = 128, clipping_threshold: float = 1.0):
+        self.schedule, self.eps, self.weight_decay = schedule, eps, weight_decay
+        self.max_grad_norm, self.decay_rate = max_grad_norm, decay_rate
+        self.min_dim, self.clipping_threshold = min_dim_size_to_factor, clipping_threshold
+
+    def init(self, params: Params) -> dict:
+        state = {"count": 0, "v_row": {}, "v_col": {}, "v": {}}
+        for name, p in params.items():
+            dims = _factored_dims(tuple(p.shape), self.min_dim)
+            if dims is None:
+                state["v"][name] = torch.zeros_like(p)
+            else:
+                d1, d0 = dims
+                keep = lambda drop: [s for i, s in enumerate(p.shape) if i != drop]  # noqa: E731
+                state["v_row"][name] = p.new_zeros(keep(d0))
+                state["v_col"][name] = p.new_zeros(keep(d1))
+        return state
+
+    @torch.no_grad()
+    def update(self, grads: Params, state: dict, params: Params, hold=frozenset()) -> dict:
+        count = state["count"]
+        decay = float(np.float32(1) - np.float32(count + 1) ** np.float32(-self.decay_rate))
+        lr = self.schedule(count)
+        g_norm = global_norm(grads)
+        clip = not bool(g_norm < self.max_grad_norm)
+        for name, p in params.items():
+            g = grads[name].float()
+            if clip:
+                g = (g / g_norm) * self.max_grad_norm
+            sq = g * g + self.eps
+            if name in state["v"]:
+                v = decay * state["v"][name].float() + (1.0 - decay) * sq
+                state["v"][name].copy_(v)
+                update = g * state["v"][name].float() ** -0.5
+            else:
+                d1, d0 = _factored_dims(tuple(p.shape), self.min_dim)
+                row, col = state["v_row"][name], state["v_col"][name]
+                row.copy_(decay * row.float() + (1.0 - decay) * sq.mean(dim=d0))
+                col.copy_(decay * col.float() + (1.0 - decay) * sq.mean(dim=d1))
+                row_f, col_f = row.float(), col.float()
+                reduced_d1 = d1 - 1 if d1 > d0 else d1
+                row_factor = (row_f / row_f.mean(dim=reduced_d1, keepdim=True)) ** -0.5
+                update = g * row_factor.unsqueeze(d0) * (col_f ** -0.5).unsqueeze(d1)
+            if name in hold:
+                continue
+            rms = torch.sqrt(update.square().mean())
+            update = update / torch.clamp(rms / self.clipping_threshold, min=1.0)
+            p.copy_(p.float() - (lr * update + self.weight_decay * p.float()))
+        state["count"] = count + 1
+        return state
+
+
+class Masked:
+    """``optax.multi_transform`` with ``set_to_zero`` for the frozen label:
+    ``inner`` sees the parameters and gradients whose mask is true and
+    nothing else, so its clip takes the norm of the live gradients only; a
+    frozen parameter gets exactly no update."""
+
+    def __init__(self, inner, mask: Dict[str, bool]):
+        self.inner, self.mask = inner, dict(mask)
+
+    def _live(self, tree: Params) -> Params:
+        return {k: v for k, v in tree.items() if self.mask[k]}
+
+    def init(self, params: Params) -> dict:
+        return {"inner": self.inner.init(self._live(params))}
+
+    def update(self, grads: Params, state: dict, params: Params) -> dict:
+        state["inner"] = self.inner.update(self._live(grads), state["inner"], self._live(params))
+        return state
+
+
+class ScheduledFreeze:
+    """The JAX package's ``scheduled_freeze``: full updates before
+    ``start_iter``, mask-only from it on. After the switch the frozen
+    gradients are zeroed before ``inner`` (its clip then sees the live set
+    only) and the frozen parameters stay where they are, weight decay
+    included, while their moments go on decaying as the JAX ones do. On the
+    switch step ``inner``'s state is reset to a fresh one."""
+
+    def __init__(self, inner, mask: Dict[str, bool], start_iter: int):
+        self.inner, self.mask, self.start_iter = inner, dict(mask), int(start_iter)
+
+    def init(self, params: Params) -> dict:
+        return {"inner": self.inner.init(params), "count": 0}
+
+    def update(self, grads: Params, state: dict, params: Params) -> dict:
+        count = state["count"]
+        hold = frozenset()
+        if count >= self.start_iter:
+            hold = frozenset(k for k in params if not self.mask[k])
+            # a zero of no size, seen at the gradient's shape
+            grads = {k: g.new_zeros(()).expand(g.shape) if k in hold else g
+                     for k, g in grads.items()}
+        if count == self.start_iter:
+            state["inner"] = self.inner.init(params)
+        state["inner"] = self.inner.update(grads, state["inner"], params, hold=hold)
+        state["count"] = count + 1
         return state
 
 
@@ -200,20 +376,32 @@ def make_optimizer(
     lr_scheduler: str = "constant",
     lr_warmup_steps: int = 0,
     max_train_steps: Optional[int] = None,
+    mask: Optional[Dict[str, bool]] = None,
+    scheduled_mask: Optional[Dict[str, bool]] = None,
+    freeze_start_iter: int = -1,
     nan_guard_steps: int = 100,
     optimizer: str = "adamw",
     mu_dtype: Union[str, torch.dtype, None] = None,
 ):
-    """The AdamW chain of the JAX package's ``make_optimizer``, with its
-    keywords and defaults. ``nan_guard_steps`` > 0 wraps it in
+    """The AdamW (or Adafactor) chain of the JAX package's ``make_optimizer``,
+    with its keywords and defaults. ``mask`` (by parameter name) freezes what
+    it marks false; else ``scheduled_mask`` does so from update
+    ``freeze_start_iter`` on. ``nan_guard_steps`` > 0 wraps the whole in
     ``ApplyIfFinite``; wrap the result in ``MultiSteps`` to accumulate."""
-    if optimizer != "adamw":
-        raise ValueError(f"optimizer {optimizer!r}: only 'adamw' is ported")
     if isinstance(mu_dtype, str):
         mu_dtype = getattr(torch, mu_dtype)
     schedule = make_schedule(learning_rate, lr_scheduler, lr_warmup_steps, max_train_steps)
-    tx = AdamW(schedule, adam_beta1, adam_beta2, adam_epsilon, adam_weight_decay, max_grad_norm,
-               mu_dtype)
+    if optimizer == "adafactor":
+        tx = Adafactor(schedule, adam_epsilon, adam_weight_decay, max_grad_norm)
+    elif optimizer == "adamw":
+        tx = AdamW(schedule, adam_beta1, adam_beta2, adam_epsilon, adam_weight_decay,
+                   max_grad_norm, mu_dtype)
+    else:
+        raise ValueError(optimizer)
+    if mask is not None:
+        tx = Masked(tx, mask)
+    elif scheduled_mask is not None:
+        tx = ScheduledFreeze(tx, scheduled_mask, freeze_start_iter)
     if nan_guard_steps:
         tx = ApplyIfFinite(tx, nan_guard_steps)
     return tx

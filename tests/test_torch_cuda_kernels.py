@@ -15,7 +15,9 @@ they agree to a few bf16 ulps: |kernel - plain| <= 1e-2 * (1 + |plain|).
 The norm kernels sum in another order and round once, one bf16 ulp apart at
 most, inside the same bound. The feed-forward kernel accumulates its two
 products in another order than cuBLAS and rounds a, g, their product and y to
-bf16, inside the same bound too.
+bf16, inside the same bound too; so does the fused ResBlock, whose plain
+version repeats its roundings (h once, y once) and whose two runs on the same
+input must agree to the bit.
 
 Gradients: a wrapper's backward differentiates its plain version, so the
 gradient through the wrapper is held against the gradient through the plain
@@ -27,8 +29,11 @@ import pytest
 import torch
 
 from ctrlv_tpu_torch.models import layers
+from ctrlv_tpu_torch.models.resnet import ResnetBlock2D
 from ctrlv_tpu_torch.models.transformer_st import TransformerSpatioTemporalModel
-from ctrlv_tpu_torch.ops import _launch, attention, geglu_ff, group_norm, layer_norm, mha
+from ctrlv_tpu_torch.ops import (
+    _launch, attention, geglu_ff, group_norm, layer_norm, mha, resblock,
+)
 
 pytestmark = pytest.mark.cuda
 
@@ -367,6 +372,87 @@ def test_feed_forward_module_routes_to_the_kernel(cuda):
     assert_close(out, off)  # the unfused path: tanh gelu, at most a bf16 ulp of act away
 
 
+def _resblock_operands(n, c, h, w, device, seed=0, pdtype=torch.bfloat16):
+    gen = torch.Generator(device=device).manual_seed(seed)
+
+    def draw(shape, scale=1.0, shift=0.0, dtype=torch.bfloat16):
+        return (shift + scale * torch.randn(shape, generator=gen, device=device)).to(dtype)
+
+    weight = lambda: draw((c, c, 3, 3), (9 * c) ** -0.5)  # noqa: E731
+    vec = lambda scale, shift=0.0: draw((c,), scale, shift, pdtype)  # noqa: E731
+    return [draw((n, c, h, w), 1.5, 0.3), vec(0.2, 1.0), vec(0.1), weight(), vec(0.1),
+            draw((n, c)), vec(0.2, 1.0), vec(0.1), weight(), vec(0.1)]
+
+
+@pytest.mark.parametrize("pdtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("n,c,h,w", [(2, 320, 40, 64), (3, 320, 11, 16), (2, 640, 20, 32),
+                                     (2, 1280, 10, 16), (2, 1280, 5, 8), (1, 320, 1, 128),
+                                     (2, 320, 3, 8)])
+def test_resblock_kernel_matches_plain(cuda, n, c, h, w, pdtype):
+    """Whole tiles, a ragged last tile of image rows, every width the gate
+    admits; norm parameters and biases in bf16 or f32, temb in the other."""
+    ops = _resblock_operands(n, c, h, w, cuda, seed=h, pdtype=pdtype)
+    if pdtype == torch.bfloat16:
+        ops[5] = ops[5].float()  # temb in f32, as the JAX function takes it
+    before = _launch.LAUNCHES["resblock"]
+    out = resblock.fused_resblock2d(*ops, 32, 1e-5)
+    again = resblock.fused_resblock2d(*ops, 32, 1e-5)
+    torch.cuda.synchronize()
+    assert _launch.LAUNCHES["resblock"] == before + 2
+    assert out.shape == (n, c, h, w) and out.dtype == torch.bfloat16
+    assert torch.equal(out, again)  # no atomics: the same bits every time
+    assert_close(out, resblock.fused_resblock2d_plain(*ops, 32, 1e-5))
+
+
+def test_resblock_kernel_zero_pads_the_border(cuda):
+    """Impulses at the corners and the centre, as tests/test_resblock.py has them."""
+    ops = _resblock_operands(1, 320, 8, 16, cuda)
+    x = torch.zeros_like(ops[0])
+    for i, j in [(0, 0), (0, 15), (7, 0), (7, 15), (4, 8)]:
+        x[0, :, i, j] = 1.0
+    ops[0] = x
+    assert_close(resblock.fused_resblock2d(*ops, 32, 1e-5),
+                 resblock.fused_resblock2d_plain(*ops, 32, 1e-5))
+
+
+def test_resblock_raises_instead_of_falling_back(cuda):
+    ops = _resblock_operands(2, 320, 8, 16, cuda)
+    with pytest.raises(TypeError):  # f32 activations: the kernel takes bf16
+        resblock.fused_resblock2d(ops[0].float(), *ops[1:])
+    with pytest.raises(ValueError):  # channels-last memory: not contiguous
+        resblock.fused_resblock2d(ops[0].to(memory_format=torch.channels_last), *ops[1:])
+    with pytest.raises(ValueError):  # the gate refuses W = 24: forcing it raises
+        resblock.fused_resblock2d(*_resblock_operands(2, 320, 8, 24, cuda))
+    with pytest.raises(ValueError):  # a weight of another width
+        resblock.fused_resblock2d(*ops[:3], ops[3][:160].contiguous(), *ops[4:])
+
+
+def test_resnet_block_routes_to_the_kernel(cuda):
+    torch.manual_seed(0)
+    block = ResnetBlock2D(320, 320, 1280, eps=1e-5).to(cuda, torch.bfloat16)
+    skip = ResnetBlock2D(640, 320, 1280, eps=1e-5).to(cuda, torch.bfloat16)
+    x = torch.randn(2, 320, 16, 32, device=cuda, dtype=torch.bfloat16)
+    temb = torch.randn(2, 1280, device=cuda, dtype=torch.bfloat16)
+    with torch.no_grad():
+        off = block(x, temb)
+        try:
+            resblock.set_fused_resblock(True)
+            _launch.reset_launch_counts()
+            out = block(x, temb)
+            skip(torch.cat([x, x], dim=1), temb)  # a 1x1 shortcut: the unfused path
+            assert _launch.LAUNCHES["resblock"] == 1
+            norms = _launch.LAUNCHES["group_norm"]
+            with _launch.plain_kernels():
+                plain = block(x, temb)
+            assert (_launch.LAUNCHES["resblock"], _launch.LAUNCHES["group_norm"]) == (1, norms)
+        finally:
+            resblock.set_fused_resblock(False)
+    torch.cuda.synchronize()
+    assert norms == 2  # the skip block's two; the routed block launched no K4
+    assert_close(out, plain)
+    assert_close(out, off)  # the unfused module rounds h twice: a bf16 ulp of h away
+
+
 def _grad_case(kind, device):
     """(wrapper, plain, operands) at a small shape the kernel takes."""
     gen = torch.Generator(device=device).manual_seed(11)
@@ -396,6 +482,10 @@ def _grad_case(kind, device):
         w, b = _affine(320, device, torch.bfloat16)
         return (lambda *t: layer_norm.layer_norm(*t, 1e-5),
                 lambda *t: layer_norm.layer_norm_plain(*t, 1e-5), [draw(257, 320), w, b])
+    if kind == "resblock":
+        return (lambda *t: resblock.fused_resblock2d(*t, 32, 1e-5),
+                lambda *t: resblock.fused_resblock2d_plain(*t, 32, 1e-5),
+                _resblock_operands(3, 320, 11, 16, device))
     if kind == "geglu_ff":
         return geglu_ff.geglu_ff, geglu_ff.geglu_ff_unfused, _ff_operands(1001, 320, device)
     return (geglu_ff.geglu_ff_ln, geglu_ff.geglu_ff_ln_unfused,
@@ -403,7 +493,7 @@ def _grad_case(kind, device):
 
 
 @pytest.mark.parametrize("kind", ["mha", "small_mha", "small_mha_fm", "flash", "group_norm",
-                                  "layer_norm", "geglu_ff", "geglu_ff_ln"])
+                                  "layer_norm", "geglu_ff", "geglu_ff_ln", "resblock"])
 def test_wrapper_gradient_matches_plain_gradient(cuda, kind):
     """A CUDA operand that requires a gradient gets the kernel's forward and
     the gradient of the plain version; one that does not gets None."""

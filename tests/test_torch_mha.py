@@ -184,7 +184,8 @@ def test_import_leaves_jax_and_flax_out():
         "ctrlv_tpu_torch.pipelines.video_control, ctrlv_tpu_torch.pipelines.video_diffusion, "
         "ctrlv_tpu_torch.models.transformer_st, ctrlv_tpu_torch.diffusion, "
         "ctrlv_tpu_torch.ops.geglu_ff, ctrlv_tpu_torch.train, ctrlv_tpu_torch.train.loss, "
-        "ctrlv_tpu_torch.train.state, ctrlv_tpu_torch.train.train_step; "
+        "ctrlv_tpu_torch.train.state, ctrlv_tpu_torch.train.train_step, "
+        "ctrlv_tpu_torch.ops.resblock, ctrlv_tpu_torch.train.lora, ctrlv_tpu_torch.train.ema; "
         "bad = sorted(m for m in sys.modules "
         "if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'optax', 'ctrlv_tpu')); "
         "print(bad); sys.exit(1 if bad else 0)"
