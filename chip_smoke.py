@@ -9,9 +9,12 @@ eight hand-written CUDA kernels:
 1. device: the card's name and power limit, torch and CUDA versions, the
    TF32 switches;
 2. build: the kernels from ctrlv_tpu_torch/csrc with nvcc (sm_90a), one
-   nvcc per source, all started together;
+   nvcc per source, all started together; then, per kernel of csrc/mha.cu
+   (K1 and K8), its count of wgmma (HGMMA), TMA load (UTMALDG) and mma.sync
+   (HMMA) instructions in the built library's SASS;
 3. kernels: each kernel against its plain PyTorch version at the shapes the
-   paths give it (and at ragged shapes): max abs error, and CUDA-event times
+   paths give it (and at ragged shapes): max abs error (K1 and K8 also run
+   twice and must agree to the bit), and CUDA-event times
    of the kernel, its plain version and the one PyTorch library call that
    computes the same function, beside the least time the card could take;
    then each kernel under autograd at a shape of the training step: its
@@ -60,6 +63,7 @@ from __future__ import annotations
 import copy
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -194,10 +198,16 @@ KERNEL_CASES = [
     ("small_mha_fm", dict(shape=(250, 40, 1280), heads=20, frames=25), True),  # mid block
     ("small_mha_fm", dict(shape=(80, 151, 256), heads=2, frames=40), False),  # odd S, d 128
     ("flash", dict(shape=(50, 640, 10, 64)), True),
-    ("flash", dict(shape=(50, 160, 20, 64)), True),  # 2.5 tiles of 64 query rows
+    ("flash", dict(shape=(50, 160, 20, 64)), True),  # 1.25 tiles of 128: the 64-row plan
     ("flash", dict(shape=(250, 640, 10, 64)), True),
     ("flash", dict(shape=(250, 160, 20, 64)), True),
     ("flash", dict(shape=(3, 200, 2, 128), sk=130), False),  # Sq != Sk, ragged, d 128
+    # Risky for K1 and K8's TMA tiles: a ragged 128-row tile at batch 3 (no row
+    # of the next element may come in), more keys than queries, and three full
+    # 64-row tiles (where 128-row tiles would leave the second half empty).
+    ("mha", dict(shape=(3, 1000, 320), heads=5), False),
+    ("mha", dict(shape=(2, 1024, 320), heads=5, sk=2048), False),
+    ("flash", dict(shape=(3, 192, 10, 64)), False),
     ("group_norm", dict(shape=(50, 320, 40, 64), act="silu"), True),
     ("group_norm", dict(shape=(50, 320, 40, 64), act=None), True),
     ("group_norm", dict(shape=(50, 1280, 20, 32), act="silu"), True),
@@ -346,6 +356,28 @@ def phase_build() -> None:
     for line in info["log"].splitlines():
         if "Used" in line or "spill" in line or "Compiling entry" in line:
             print(f"[build]   {line.strip()}")
+    # K1 and K8 (csrc/mha.cu) are wgmma products fed by TMA: every
+    # instantiation behind ctrlv_mha_fwd and ctrlv_flash_fwd has HGMMA and
+    # UTMALDG in its SASS, and no HMMA (mma.sync).
+    sass = subprocess.run([_build.cuda_tool("cuobjdump"), "-sass", info["path"]],
+                          capture_output=True, text=True, timeout=300)
+    if sass.returncode != 0:
+        fail(f"cuobjdump -sass failed: {sass.stderr[-2000:]}")
+    ops, counts, fn = ("HGMMA", "UTMALDG", "HMMA"), {}, None
+    for line in sass.stdout.splitlines():
+        m = re.search(r"Function : \S*14mha_fwd_kernelI((?:Li\d+E)+)E", line)
+        if "Function :" in line:
+            fn = f"mha_fwd_kernel<{','.join(re.findall(r'\d+', m.group(1)))}>" if m else None
+            if fn:
+                counts[fn] = dict.fromkeys(ops, 0)
+        elif fn:
+            for op in ops:
+                counts[fn][op] += len(re.findall(rf"\b{op}\b", line))
+    for fn, cnt in counts.items():
+        print(f"[build] mha.cu {fn} (D, consumer warpgroups, keys a tile, stages): "
+              + ", ".join(f"{op} {n}" for op, n in cnt.items()))
+    if not counts or any(not c["HGMMA"] or not c["UTMALDG"] or c["HMMA"] for c in counts.values()):
+        fail(f"mha.cu's kernels are not wgmma + TMA throughout: {counts}")
 
 
 def make_case(kind: str, spec: dict, gen):
@@ -515,6 +547,14 @@ def phase_kernels() -> dict:
         err, within = compare(out, ref)
         line = (f"[kernels] {kind} {spec} max_abs_err={err:.3e} "
                 f"tol={KERNEL_TOL}*(1+|plain|) within={within}")
+        if kind in ("mha", "flash"):
+            shape = spec["shape"]
+            sq, d = shape[1], (shape[3] if kind == "flash" else shape[2] // spec["heads"])
+            same = torch.equal(out, kern())
+            plan = mha.tile_plan(sq, spec.get("sk", sq), d, kind == "flash")
+            line += f" plan(q rows, keys, stages)={plan} equal_to_the_bit_twice={same}"
+            if not same:
+                fail(f"{kind} at {spec}: two runs on the same inputs differ")
         res = results[kind]
         if timed:
             t_bytes, t_ops = 1e3 * nbytes / PEAK_BYTES, 1e3 * flops / rate

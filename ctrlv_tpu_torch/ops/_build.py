@@ -76,22 +76,23 @@ def _digest() -> str:
     return h.hexdigest()[:16]
 
 
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
+def cuda_tool(name: str = "nvcc") -> str:
+    """Path of a CUDA toolkit program (nvcc, cuobjdump): on PATH or under CUDA_HOME."""
+    found = shutil.which(name)
     if found:
         return found
     home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") or "/usr/local/cuda"
-    cand = Path(home) / "bin" / "nvcc"
+    cand = Path(home) / "bin" / name
     if cand.is_file():
         return str(cand)
-    raise RuntimeError("nvcc not found on PATH or under CUDA_HOME; the kernels cannot be built")
+    raise RuntimeError(f"{name} not found on PATH or under CUDA_HOME")
 
 
 def _compile(out_dir: Path) -> tuple[Path, str]:
     out_dir.mkdir(parents=True, exist_ok=True)
     lib = out_dir / LIB_NAME
     tag = os.getpid()
-    nvcc = _nvcc()
+    nvcc = cuda_tool()
     units = [p for p in _sources() if p.suffix == ".cu"]
     objects = [out_dir / f".{p.stem}.{tag}.o" for p in units]
     cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(p)] for p, o in zip(units, objects)]

@@ -62,6 +62,19 @@ def check_operand(name: str, t, dtype, device=None) -> None:
         raise ValueError(f"{name}: operand not 16-byte aligned")
 
 
+def check_tma_operands(name: str, row_elems: int, *tensors) -> None:
+    """Raise unless a TMA copy can read each of ``tensors`` as rows of
+    ``row_elems`` elements: it needs a 16-byte aligned base and a row stride
+    that is a multiple of 16 bytes. The C entry of ``csrc/mha.cu`` refuses
+    the same."""
+    for t in tensors:
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: base address {t.data_ptr():#x} is not 16-byte aligned")
+        if row_elems * t.element_size() % 16:
+            raise ValueError(f"{name}: row stride of {row_elems * t.element_size()} bytes is not "
+                             f"a multiple of 16")
+
+
 def launch(name: str, fn_name: str, device, *args) -> None:
     """Call the C entry point ``fn_name(*args, stream)`` on ``device``'s
     current stream; raise on a cudaError, else count one launch of ``name``."""

@@ -34,7 +34,7 @@ from typing import Optional
 
 import torch
 
-from ._launch import check_operand, launch, plain_selected, with_recompute
+from ._launch import check_operand, check_tma_operands, launch, plain_selected, with_recompute
 
 _ATTENTION_IMPL = "auto"
 
@@ -64,12 +64,8 @@ def flash_attention_plain(q, k, v, scale: float):
     return torch.einsum("bhqk,bkhd->bqhd", weights, v)
 
 
-def flash_attention(q, k, v, scale: float):
-    """softmax(q k^T * scale) v per head over (B, Sq, H, D) x (B, Sk, H, D)."""
-    if q.device.type == "cpu":
-        return flash_attention_plain(q, k, v, scale)
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_attention: no kernel for device {q.device}")
+def _check_flash(q, k, v) -> tuple[int, int, int, int, int]:
+    """Validate the kernel's operands; returns (B, Sq, Sk, H, D)."""
     for t in (q, k, v):
         check_operand("flash", t, torch.bfloat16, q.device)
         if t.dim() != 4:
@@ -80,6 +76,17 @@ def flash_attention(q, k, v, scale: float):
         raise ValueError(f"flash: shapes {tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
     if d not in (64, 128):
         raise ValueError(f"flash: head dim {d} is not 64 or 128")
+    check_tma_operands("flash", heads * d, q, k, v)  # (B, S, H*D) rows, as csrc/mha.cu reads them
+    return b, sq, sk, heads, d
+
+
+def flash_attention(q, k, v, scale: float):
+    """softmax(q k^T * scale) v per head over (B, Sq, H, D) x (B, Sk, H, D)."""
+    if q.device.type == "cpu":
+        return flash_attention_plain(q, k, v, scale)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention: no kernel for device {q.device}")
+    b, sq, sk, heads, d = _check_flash(q, k, v)
 
     def run(q, k, v):
         out = torch.empty_like(q)

@@ -6,8 +6,9 @@ its plain PyTorch version beside it:
 
 - ``mha_attention`` (``csrc/mha.cu``) replaces the Pallas kernel
   ``ctrlv_tpu/ops/mha.py::mha_attention``: the spatial self-attention at the
-  2560-token level. Bound by the tensor cores; a flash-style kernel with K/V
-  tiles streamed through shared memory and an online f32 softmax.
+  2560-token level. Bound by the tensor cores; a persistent, warp-specialised
+  flash-attention forward (TMA copies, ``wgmma`` products, an online f32
+  softmax), whose instantiation ``tile_plan`` mirrors.
 - ``small_mha_attention`` (``csrc/small_mha.cu``) replaces the Pallas kernel
   ``ctrlv_tpu/ops/mha.py::small_mha_attention``: the temporal self-attention
   over F=25 frames for thousands of pixels. Bound by device memory; one warp
@@ -42,6 +43,7 @@ import torch
 from ._launch import (  # noqa: F401  (re-exported: callers read them here)
     LAUNCHES,
     check_operand,
+    check_tma_operands,
     launch,
     plain_kernels,
     plain_selected,
@@ -52,6 +54,22 @@ from ._launch import (  # noqa: F401  (re-exported: callers read them here)
 
 def mha_supported(sq: int, sk: int, hd: int, heads: int) -> bool:
     return hd % heads == 0 and hd // heads in (64, 128) and sq >= 1024 and sk >= 1024
+
+
+def tile_plan(sq: int, sk: int, head_dim: int, flash: bool) -> tuple[int, int, int]:
+    """(query rows a block, keys a tile, K/V stages) that ``csrc/mha.cu``
+    takes for a call: a mirror of its C ``tile_plan``, for the tests and the
+    smoke run. K1's entry at head dim 64: 192 query rows (three consumer
+    warpgroups); otherwise 128 (two). Keys come in tiles of 128. K8's entry
+    (``flash``) takes 64 query rows and 64-key tiles where the last 128-row
+    query tile would be at most half full. Four stages at head dim 64, two
+    at 128."""
+    del sk  # every plan streams any number of keys
+    stages = 4 if head_dim == 64 else 2
+    if not flash and head_dim == 64:
+        return 192, 128, stages
+    block = 64 if flash and 1 <= sq % 128 <= 64 else 128
+    return block, block, stages
 
 
 def small_mha_supported(n: int, sq: int, sk: int, hd: int, heads: int) -> bool:
@@ -107,8 +125,9 @@ def small_mha_attention_fm_plain(q3, k3, v3, heads: int, scale: float, num_frame
     return out.reshape(b, s, num_frames, hd).transpose(1, 2).reshape(bf, s, hd)
 
 
-def _check_cuda(name: str, q3, k3, v3, heads: int) -> int:
-    """Validate the kernel's operands; returns the head dim."""
+def _check_cuda(name: str, q3, k3, v3, heads: int, tma: bool = False) -> int:
+    """Validate the kernel's operands; returns the head dim. ``tma``: the
+    kernel copies them by TMA (``csrc/mha.cu``)."""
     for t in (q3, k3, v3):
         check_operand(name, t, torch.bfloat16, q3.device)
         if t.dim() != 3:
@@ -118,6 +137,8 @@ def _check_cuda(name: str, q3, k3, v3, heads: int) -> int:
         raise ValueError(f"{name}: shapes {tuple(q3.shape)}, {tuple(k3.shape)}, {tuple(v3.shape)}")
     if hd % heads or hd // heads not in (64, 128):
         raise ValueError(f"{name}: head dim {hd}/{heads} is not 64 or 128")
+    if tma:
+        check_tma_operands(name, hd, q3, k3, v3)
     return hd // heads
 
 
@@ -156,7 +177,7 @@ def mha_attention(q3, k3, v3, heads: int, scale: float):
         return mha_attention_plain(q3, k3, v3, heads, scale)
     if q3.device.type != "cuda":
         raise ValueError(f"mha_attention: no kernel for device {q3.device}")
-    d = _check_cuda("mha", q3, k3, v3, heads)
+    d = _check_cuda("mha", q3, k3, v3, heads, tma=True)
     b, sq, _ = q3.shape
     ints = (b, sq, k3.shape[1], heads, d)
     return with_recompute(

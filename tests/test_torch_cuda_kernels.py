@@ -58,16 +58,17 @@ def _qkv(shape_q, shape_kv, device, seed=0):
 
 
 @pytest.mark.parametrize(
-    "sq,sk,hd,heads",
+    "b,sq,sk,hd,heads",
     [
-        (1024, 1024, 128, 2),  # head dim 64
-        (1100, 1100, 256, 2),  # ragged query and key tiles, head dim 128
-        (1024, 2048, 192, 3),  # more keys than queries
-        (2560, 2560, 320, 5),  # the sampler's heads at one batch element
+        (2, 1024, 1024, 128, 2),  # head dim 64
+        (2, 1100, 1100, 256, 2),  # ragged query and key tiles, head dim 128
+        (2, 1024, 2048, 192, 3),  # more keys than queries
+        (2, 2560, 2560, 320, 5),  # the sampler's heads at one batch element
+        (3, 1000, 1000, 320, 5),  # a ragged tile must not read the next element's rows
     ],
 )
-def test_mha_kernel_matches_plain(cuda, sq, sk, hd, heads):
-    q, k, v = _qkv((2, sq, hd), (2, sk, hd), cuda)
+def test_mha_kernel_matches_plain(cuda, b, sq, sk, hd, heads):
+    q, k, v = _qkv((b, sq, hd), (b, sk, hd), cuda)
     scale = (hd // heads) ** -0.5
     before = mha.LAUNCHES["mha"]
     out = mha.mha_attention(q, k, v, heads, scale)
@@ -100,6 +101,15 @@ def test_wrappers_raise_instead_of_falling_back(cuda):
     qs = torch.zeros(300, 25, 96, device=cuda, dtype=torch.bfloat16)
     with pytest.raises(ValueError):  # head dim 48
         mha.small_mha_attention(qs, qs, qs, 2, 0.125)
+    # TMA needs a 16-byte aligned base: a contiguous view 8 bytes past one
+    buf = torch.zeros(1024 * 128 + 8, device=cuda, dtype=torch.bfloat16)
+    qa = buf[4:4 + 1024 * 128].view(1, 1024, 128)
+    assert qa.is_contiguous() and qa.data_ptr() % 16 == 8
+    with pytest.raises(ValueError):
+        mha.mha_attention(qa, qa, qa, 2, 0.125)
+    with pytest.raises(ValueError):
+        attention.flash_attention(qa.view(1, 1024, 2, 64), qa.view(1, 1024, 2, 64),
+                                  qa.view(1, 1024, 2, 64), 0.125)
 
 
 def test_attention_module_routes_to_kernels(cuda):
@@ -140,10 +150,11 @@ def test_small_mha_fm_kernel_matches_plain(cuda, f, hd, heads):
     "sq,sk,heads,d",
     [
         (128, 128, 2, 64),
-        (160, 160, 20, 64),  # 2.5 tiles of 64: the 32-row instantiation
+        (160, 160, 20, 64),  # 1.25 tiles of 128: the 64-row instantiation
         (640, 640, 10, 64),
         (160, 640, 3, 64),  # Sq != Sk
         (200, 130, 2, 128),  # ragged both ways, head dim 128
+        (192, 192, 10, 64),  # three full tiles of 64: the 64-row instantiation
     ],
 )
 def test_flash_kernel_matches_plain(cuda, sq, sk, heads, d):

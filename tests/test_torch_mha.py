@@ -28,7 +28,8 @@ from ctrlv_tpu.ops import mha as jax_mha
 from ctrlv_tpu.ops.geglu_ff import gelu_erf as jax_gelu_erf
 from ctrlv_tpu_torch.convert import flax_to_state_dict
 from ctrlv_tpu_torch.models import layers
-from ctrlv_tpu_torch.ops import geglu_ff, mha
+from ctrlv_tpu_torch.ops import _launch, attention, geglu_ff, mha
+from ctrlv_tpu_torch.tools import ab_mha
 
 torch.set_num_threads(1)
 
@@ -93,6 +94,59 @@ def test_mha_gate(sq, sk, hd, heads, expect):
 )
 def test_small_mha_gate(n, f, hd, heads, expect):
     assert mha.small_mha_supported(n, f, f, hd, heads) is expect
+
+
+@pytest.mark.parametrize(
+    "sq,sk,d,flash,expect",
+    [
+        (2560, 2560, 64, False, (192, 128, 4)),  # K1 at the 2560-token level
+        (1000, 1000, 64, False, (192, 128, 4)),  # ragged last tile, 40 rows
+        (160, 160, 64, False, (192, 128, 4)),  # K1's entry never takes 64 rows
+        (1024, 2048, 128, False, (128, 128, 2)),  # head dim 128: two warpgroups, two stages
+        (640, 640, 64, True, (128, 128, 4)),  # K8 at 640 tokens: five full tiles
+        (160, 160, 64, True, (64, 64, 4)),  # K8 at 160 tokens: 1.25 tiles of 128
+        (192, 192, 64, True, (64, 64, 4)),  # three full tiles of 64
+        (200, 130, 128, True, (128, 128, 2)),  # the last tile 72 rows: more than half
+        (37, 5, 64, True, (64, 64, 4)),
+        (128, 128, 64, True, (128, 128, 4)),
+    ],
+)
+def test_tile_plan(sq, sk, d, flash, expect):
+    """The instantiation csrc/mha.cu takes, mirrored from its C tile_plan."""
+    assert mha.tile_plan(sq, sk, d, flash) == expect
+
+
+def test_tma_alignment_check_is_the_wrappers(monkeypatch):
+    """TMA needs a 16-byte aligned base and rows a multiple of 16 bytes; the
+    checks of both wrappers of csrc/mha.cu apply that test to every operand."""
+    n = 2 * 64 * 128
+    buf = torch.zeros(n + 8, dtype=torch.bfloat16)
+    ok = buf[:n].view(2, 64, 128)
+    bad = buf[4:n + 4].view(2, 64, 128)  # a contiguous view 8 bytes past the base
+    assert ok.data_ptr() % 16 == 0 and bad.data_ptr() % 16 == 8
+    _launch.check_tma_operands("t", 128, ok)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        _launch.check_tma_operands("t", 128, ok, bad)
+    with pytest.raises(ValueError, match="multiple of 16"):
+        _launch.check_tma_operands("t", 12, ok)  # rows of 24 bytes
+    # With the device checks out of the way, the wrappers' own checks raise.
+    monkeypatch.setattr(mha, "check_operand", lambda *a, **k: None)
+    monkeypatch.setattr(attention, "check_operand", lambda *a, **k: None)
+    assert mha._check_cuda("mha", ok, ok, ok, 2, tma=True) == 64
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        mha._check_cuda("mha", ok, bad, ok, 2, tma=True)
+    as4 = lambda t: t.view(2, 64, 2, 64)  # noqa: E731
+    assert attention._check_flash(as4(ok), as4(ok), as4(ok)) == (2, 64, 64, 2, 64)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        attention._check_flash(as4(ok), as4(ok), as4(bad))
+
+
+def test_ab_variants_patch_the_source():
+    """Each design variant the A/B script builds is one exact edit of mha.cu."""
+    src = (ab_mha._build.CSRC / "mha.cu").read_text()
+    for name, patches in ab_mha.VARIANTS.items():
+        for old, new in patches:
+            assert src.count(old) == 1 and old != new, name
 
 
 def test_plain_attention_switch_is_scoped():
@@ -185,7 +239,8 @@ def test_import_leaves_jax_and_flax_out():
         "ctrlv_tpu_torch.models.transformer_st, ctrlv_tpu_torch.diffusion, "
         "ctrlv_tpu_torch.ops.geglu_ff, ctrlv_tpu_torch.train, ctrlv_tpu_torch.train.loss, "
         "ctrlv_tpu_torch.train.state, ctrlv_tpu_torch.train.train_step, "
-        "ctrlv_tpu_torch.ops.resblock, ctrlv_tpu_torch.train.lora, ctrlv_tpu_torch.train.ema; "
+        "ctrlv_tpu_torch.ops.resblock, ctrlv_tpu_torch.train.lora, ctrlv_tpu_torch.train.ema, "
+        "ctrlv_tpu_torch.tools.ab_mha; "
         "bad = sorted(m for m in sys.modules "
         "if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'optax', 'ctrlv_tpu')); "
         "print(bad); sys.exit(1 if bad else 0)"
