@@ -10,11 +10,13 @@ eight hand-written CUDA kernels:
    TF32 switches;
 2. build: the kernels from ctrlv_tpu_torch/csrc with nvcc (sm_90a), one
    nvcc per source, all started together; then, per kernel of csrc/mha.cu
-   (K1 and K8), its count of wgmma (HGMMA), TMA load (UTMALDG) and mma.sync
-   (HMMA) instructions in the built library's SASS;
+   (K1 and K8) and per convolution kernel of csrc/resblock.cu (K7), its
+   count of wgmma (HGMMA), TMA load (UTMALDG) and mma.sync (HMMA)
+   instructions in the built library's SASS;
 3. kernels: each kernel against its plain PyTorch version at the shapes the
-   paths give it (and at ragged shapes): max abs error (K1 and K8 also run
-   twice and must agree to the bit), and CUDA-event times
+   paths give it (and at ragged shapes): max abs error (K1, K7 and K8 also
+   run twice and must agree to the bit; K7 prints its tiling and shows its
+   cache of re-laid weights at work), and CUDA-event times
    of the kernel, its plain version and the one PyTorch library call that
    computes the same function, beside the least time the card could take;
    then each kernel under autograd at a shape of the training step: its
@@ -49,8 +51,8 @@ eight hand-written CUDA kernels:
    one VAE-decoder step on 8 frames.
 
 ``python3 chip_smoke.py --profile [DIR]`` instead builds the models and
-prints one step's device time by kind of kernel (torch.profiler; the table
-by kernel goes to DIR, by default output/).
+prints one step's device time by kind of kernel (torch.profiler; the tables
+by kernel go to DIR, by default output/), with K7 off and on in turns.
 
 Prints a JSON line of the kernels, then, as the last line,
 {"ok": true, "device": {...}}. A failed check exits non-zero before that
@@ -118,6 +120,7 @@ DEVICE = "cuda"
 # The card's published peaks (NVIDIA H100 SXM): HBM bytes/s, dense bf16 tensor
 # FLOP/s, f32 FLOP/s outside the tensor cores.
 PEAK_BYTES, PEAK_BF16, PEAK_F32 = 3.35e12, 989e12, 67e12
+SMS = 132  # its streaming multiprocessors
 # |kernel - plain| <= KERNEL_TOL * (1 + |plain|) elementwise: the attention
 # kernels round P to bf16 at other places than their plain versions, the norm
 # kernels sum in another order, and the output itself is bf16 (ulp 2^-8 relative).
@@ -267,9 +270,9 @@ KERNEL_CASES = [
     ("layer_norm", dict(shape=(4000, 1280)), True),
     ("layer_norm", dict(shape=(1000, 1280)), True),  # mid block
     # K7, (N, C, H, W) of a same-channel spatial ResBlock: the Box2Video step, the
-    # training micro-step and stage 1 at level 0; the deeper levels its gate admits
-    # (the last tile of image rows is ragged at 10x16 and 5x8) at the Box2Video
-    # step's batch and at the training micro-step's; a small ragged one.
+    # training micro-step and stage 1 at level 0; the deeper levels (a tile spans
+    # several samples at 10x16 and 5x8) at the Box2Video step's batch, the training
+    # micro-step's and stage 1's (should it be routed there); a small ragged one.
     ("resblock", dict(shape=(50, 320, 40, 64)), True),
     ("resblock", dict(shape=(25, 320, 40, 64)), True),
     ("resblock", dict(shape=(250, 320, 40, 64)), True),
@@ -279,6 +282,9 @@ KERNEL_CASES = [
     ("resblock", dict(shape=(25, 640, 20, 32)), True),
     ("resblock", dict(shape=(25, 1280, 10, 16)), True),
     ("resblock", dict(shape=(25, 1280, 5, 8)), True),
+    ("resblock", dict(shape=(250, 640, 20, 32)), True),
+    ("resblock", dict(shape=(250, 1280, 10, 16)), True),
+    ("resblock", dict(shape=(250, 1280, 5, 8)), True),
     ("resblock", dict(shape=(3, 320, 11, 16)), False),  # 8 image rows a tile: 3 of the second
 ]
 # A case a kernel for the gradient check: a shape of the training micro-step
@@ -356,28 +362,37 @@ def phase_build() -> None:
     for line in info["log"].splitlines():
         if "Used" in line or "spill" in line or "Compiling entry" in line:
             print(f"[build]   {line.strip()}")
-    # K1 and K8 (csrc/mha.cu) are wgmma products fed by TMA: every
-    # instantiation behind ctrlv_mha_fwd and ctrlv_flash_fwd has HGMMA and
-    # UTMALDG in its SASS, and no HMMA (mma.sync).
+    # K1 and K8 (csrc/mha.cu) and K7's convolutions (csrc/resblock.cu) are
+    # wgmma products fed by TMA: every instantiation has HGMMA and UTMALDG in
+    # its SASS, and no HMMA (mma.sync).
     sass = subprocess.run([_build.cuda_tool("cuobjdump"), "-sass", info["path"]],
                           capture_output=True, text=True, timeout=300)
     if sass.returncode != 0:
         fail(f"cuobjdump -sass failed: {sass.stderr[-2000:]}")
-    ops, counts, fn = ("HGMMA", "UTMALDG", "HMMA"), {}, None
+    ops, fn = ("HGMMA", "UTMALDG", "HMMA"), None
+    counts = {"mha.cu": {}, "resblock.cu": {}}
     for line in sass.stdout.splitlines():
-        m = re.search(r"Function : \S*14mha_fwd_kernelI((?:Li\d+E)+)E", line)
         if "Function :" in line:
-            fn = f"mha_fwd_kernel<{','.join(re.findall(r'\d+', m.group(1)))}>" if m else None
+            fn = None
+            m = re.search(r"14mha_fwd_kernelI((?:Li\d+E)+)E", line)
+            if m:
+                fn = ("mha.cu", "mha_fwd_kernel<" + ",".join(re.findall(r"\d+", m.group(1)))
+                      + "> (D, consumer warpgroups, keys a tile, stages)")
+            m = re.search(r"11conv_kernelILb([01])ELi(\d+)EE", line)
+            if m:
+                fn = ("resblock.cu", f"conv_kernel<{('conv2', 'conv1')[int(m.group(1))]}, "
+                      f"{160 * int(m.group(2))} output channels a block>")
             if fn:
-                counts[fn] = dict.fromkeys(ops, 0)
+                counts[fn[0]][fn[1]] = dict.fromkeys(ops, 0)
         elif fn:
             for op in ops:
-                counts[fn][op] += len(re.findall(rf"\b{op}\b", line))
-    for fn, cnt in counts.items():
-        print(f"[build] mha.cu {fn} (D, consumer warpgroups, keys a tile, stages): "
-              + ", ".join(f"{op} {n}" for op, n in cnt.items()))
-    if not counts or any(not c["HGMMA"] or not c["UTMALDG"] or c["HMMA"] for c in counts.values()):
-        fail(f"mha.cu's kernels are not wgmma + TMA throughout: {counts}")
+                counts[fn[0]][fn[1]][op] += len(re.findall(rf"\b{op}\b", line))
+    for source, by_fn in counts.items():
+        for name, cnt in by_fn.items():
+            print(f"[build] {source} {name}: " + ", ".join(f"{op} {n}" for op, n in cnt.items()))
+        if len(by_fn) < (1 if source == "mha.cu" else 4) or any(
+                not c["HGMMA"] or not c["UTMALDG"] or c["HMMA"] for c in by_fn.values()):
+            fail(f"{source}'s kernels are not wgmma + TMA throughout: {by_fn}")
 
 
 def make_case(kind: str, spec: dict, gen):
@@ -555,6 +570,16 @@ def phase_kernels() -> dict:
             line += f" plan(q rows, keys, stages)={plan} equal_to_the_bit_twice={same}"
             if not same:
                 fail(f"{kind} at {spec}: two runs on the same inputs differ")
+        if kind == "resblock":
+            plan = resblock._plan(*spec["shape"], spec.get("groups", 32), torch.bfloat16)
+            same = torch.equal(out, kern())
+            line += (f" plan: M tile of 128 pixels = {plan.rows} image rows, up to {plan.max_seg} "
+                     f"samples a tile, padding {100 * plan.padding:.1f} %, {160 * plan.halves} "
+                     f"output channels a block, {plan.blocks} blocks = {plan.blocks / SMS:.2f} "
+                     f"waves on {SMS} SMs, {plan.stages} weight stages; "
+                     f"equal_to_the_bit_twice={same}")
+            if not same:
+                fail(f"{kind} at {spec}: two runs on the same inputs differ")
         res = results[kind]
         if timed:
             t_bytes, t_ops = 1e3 * nbytes / PEAK_BYTES, 1e3 * flops / rate
@@ -566,6 +591,8 @@ def phase_kernels() -> dict:
             line += (f" kernel_ms={times['ms']:.4f} plain_ms={times['plain_ms']:.4f} "
                      f"library_ms={times['library_ms']:.4f} bound_ms={times['bound_ms']:.4f} "
                      f"(bytes {t_bytes:.4f}, operations {t_ops:.4f})")
+            if kind == "resblock":
+                line += f" share_of_bf16_peak={100 * t_ops / times['ms']:.1f}%"
             if (kind == "group_norm"
                     and out[0].numel() // spec.get("groups", 32) <= group_norm._SMEM_RUN_ELEMS):
                 # A run short enough for the one-block path: the split path beside it.
@@ -591,6 +618,7 @@ def phase_kernels() -> dict:
         print(f"[kernels] geglu_ff at C = 1280, which its gate refuses, raises when forced: {exc}")
     else:
         fail("K6 did not raise on a shape its gate refuses")
+    weight_cache_case(gen)
     # The same for K7: a skip-connected up-block width, and a W that does not divide a tile.
     for shape in ((2, 960, 20, 32), (2, 320, 8, 24)):
         if resblock._plan(*shape, 32, torch.bfloat16) is not None:
@@ -606,6 +634,40 @@ def phase_kernels() -> dict:
         else:
             fail("K7 did not raise on a shape its gate refuses")
     return results
+
+
+def weight_cache_case(gen) -> None:
+    """K7 re-lays a weight once while it is unchanged: a cold call re-lays
+    both, a warm one neither; an update in place under no_grad makes one fresh
+    copy, and the next output is the plain version's with the new weight."""
+    kern, plain, *_, (_, _, ops) = make_case("resblock", dict(shape=(50, 1280, 5, 8)), gen)
+    relaid = lambda: resblock.relaid_weights.relayouts  # noqa: E731
+
+    def timed_call():
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = kern()
+        end.record()
+        torch.cuda.synchronize()
+        return out, start.elapsed_time(end)
+
+    before = relaid()
+    cold, cold_ms = timed_call()
+    warm, warm_ms = timed_call()
+    cold_copies, warm_copies = relaid() - before, relaid() - before - 2
+    with torch.no_grad():
+        ops[8].add_(0.5 * ops[8].flip(0))
+    new, new_ms = timed_call()
+    err, within = compare(new, plain())
+    print(f"[kernels] resblock weight cache at (50, 1280, 5, 8): cold call {cold_ms:.3f} ms, "
+          f"{cold_copies} weights re-laid; warm call {warm_ms:.3f} ms, {warm_copies} re-laid; "
+          f"after w2.add_ under no_grad {new_ms:.3f} ms, {relaid() - before - 2} re-laid, "
+          f"against the plain version with the new weight max_abs_err={err:.3e} "
+          f"within={within}; warm equals cold to the bit: {torch.equal(cold, warm)}", flush=True)
+    if (cold_copies, warm_copies, relaid() - before) != (2, 0, 3) or not within:
+        fail("K7's weight cache did not re-lay exactly when a weight was new or changed")
+    if not torch.equal(cold, warm) or torch.equal(new, cold):
+        fail("K7's output did not follow its weights")
 
 
 def phase_grads() -> None:
@@ -1503,10 +1565,11 @@ def phase_train_svd(models, card: str) -> dict:
 KERNEL_KINDS = (
     ("K2 + K3 (small_mha.cu)", ("small_mha_fwd_kernel",)),
     ("K1 + K8 (mha.cu)", ("mha_fwd_kernel",)),
+    ("K7 (resblock.cu)", ("namespace)::conv_kernel", "namespace)::gn_sums_kernel",
+                          "namespace)::relayout_kernel")),
     ("K4 (group_norm.cu)", ("namespace)::gn_",)),
     ("K5 (layer_norm.cu)", ("namespace)::layer_norm_kernel",)),
     ("K6 (geglu_ff.cu)", ("geglu_ff_kernel",)),
-    ("K7 (resblock.cu)", ("conv_kernel", "gn_sums_kernel", "relayout_kernel")),
     ("cuDNN NCHW<->NHWC transforms", ("nchwToNhwc", "nhwcToNchw")),
     ("convolutions (cuDNN)", ("cudnn", "implicit_gemm", "conv")),
     ("matmuls (cuBLAS)", ("nvjet", "gemm", "cutlass")),
@@ -1519,35 +1582,47 @@ KERNEL_KINDS = (
 @torch.no_grad()
 def profile_step(models, card: str, out_dir: str) -> None:
     """A reading, not a check: the device time of one ControlNet+UNet step by
-    kind of kernel (torch.profiler); the table by kernel goes to
-    ``out_dir``/step_profile.txt."""
+    kind of kernel (torch.profiler), with K7 off and on in turns (off, on, on,
+    off); the tables by kernel go to ``out_dir``/step_profile_k7_{off,on}.txt."""
     from torch.profiler import ProfilerActivity, profile
 
     step, _, _ = make_step(models)
     set_temporal_layout((models["ctrl"], models["unet"]), "frames_major")
-    ms = cuda_time_ms(step, reps=3, warmup=2)
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        step()
-        torch.cuda.synchronize()
-    by_kind, total, n_kernels = {}, 0.0, 0
-    for evt in prof.key_averages():
-        if evt.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        us = evt.self_device_time_total
-        kind = next((k for k, words in KERNEL_KINDS if any(w in evt.key for w in words)), "other")
-        by_kind[kind] = by_kind.get(kind, 0.0) + us
-        total += us
-        n_kernels += evt.count
-    if total <= 0:
-        fail("the profiler recorded no device time")
-    print(f"[profile] one step, all kernels, frames-major: {ms:.1f} ms by CUDA events; "
-          f"{n_kernels} device kernels, {total / 1e3:.1f} ms of device time; card {card}")
-    for kind, us in sorted(by_kind.items(), key=lambda kv: -kv[1]):
-        print(f"[profile]   {kind}: {us / 1e3:.1f} ms, {100 * us / total:.1f} %")
+    device_ms = {}
     os.makedirs(out_dir, exist_ok=True)
-    with open(os.path.join(out_dir, "step_profile.txt"), "w") as fh:
-        fh.write(prof.key_averages().table(sort_by="self_cuda_time_total", row_limit=80,
-                                           max_name_column_width=90))
+    for variant in ("K7 off", "K7 on", "K7 on", "K7 off"):
+        resblock.set_fused_resblock(variant == "K7 on")
+        try:
+            ms = cuda_time_ms(step, reps=3, warmup=2)
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                step()
+                torch.cuda.synchronize()
+        finally:
+            resblock.set_fused_resblock(False)
+        by_kind, total, n_kernels = {}, 0.0, 0
+        for evt in prof.key_averages():
+            if evt.device_type != torch.autograd.DeviceType.CUDA:
+                continue
+            us = evt.self_device_time_total
+            kind = next((k for k, words in KERNEL_KINDS if any(w in evt.key for w in words)),
+                        "other")
+            by_kind[kind] = by_kind.get(kind, 0.0) + us
+            total += us
+            n_kernels += evt.count
+        if total <= 0:
+            fail("the profiler recorded no device time")
+        device_ms.setdefault(variant, []).append(total / 1e3)
+        print(f"[profile] one step, all kernels, frames-major, {variant}: {ms:.1f} ms by CUDA "
+              f"events; {n_kernels} device kernels, {total / 1e3:.1f} ms of device time; "
+              f"card {card}")
+        for kind, us in sorted(by_kind.items(), key=lambda kv: -kv[1]):
+            print(f"[profile]   {kind}: {us / 1e3:.1f} ms, {100 * us / total:.1f} %")
+        name = f"step_profile_k7_{variant.split()[1]}.txt"
+        with open(os.path.join(out_dir, name), "w") as fh:
+            fh.write(prof.key_averages().table(sort_by="self_cuda_time_total", row_limit=80,
+                                               max_name_column_width=90))
+    print("[profile] device ms a step: " + "; ".join(
+        f"{v} {', '.join(f'{x:.1f}' for x in xs)}" for v, xs in device_ms.items()), flush=True)
 
 
 def main() -> None:

@@ -54,9 +54,11 @@ _SIGNATURES = {
     "ctrlv_geglu_ff_fwd": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
     # x, gamma, beta, w1, b1, w2, b2, y, rows, width, inner, eps
     "ctrlv_geglu_ff_ln_fwd": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _P),
-    # x, g1, b1, w1, wb1, temb, g2, b2, w2, wb2, y, then the scratch h, re-laid weights,
+    # x, g1, b1, re-laid w1, wb1, temb, g2, b2, re-laid w2, wb2, y, then the scratch h,
     # stats1, stats2; n, c, height, width, groups, params are bf16, temb is bf16, eps
-    "ctrlv_resblock_fwd": (*(_P,) * 15, _I, _I, _I, _I, _I, _I, _I, _F, _P),
+    "ctrlv_resblock_fwd": (*(_P,) * 14, _I, _I, _I, _I, _I, _I, _I, _F, _P),
+    # w (c, c, 3, 3), its re-laid copy (9, c, c), c
+    "ctrlv_resblock_relayout": (_P, _P, _I, _P),
 }
 
 _lock = threading.Lock()

@@ -75,9 +75,10 @@ def check_tma_operands(name: str, row_elems: int, *tensors) -> None:
                              f"a multiple of 16")
 
 
-def launch(name: str, fn_name: str, device, *args) -> None:
+def launch(name: str, fn_name: str, device, *args, count: bool = True) -> None:
     """Call the C entry point ``fn_name(*args, stream)`` on ``device``'s
-    current stream; raise on a cudaError, else count one launch of ``name``."""
+    current stream; raise on a cudaError, else count one launch of ``name``
+    (``count=False``: a helper of the kernel, such as a weight re-layout)."""
     from ._build import load
 
     lib = load()
@@ -86,7 +87,8 @@ def launch(name: str, fn_name: str, device, *args) -> None:
         rc = getattr(lib, fn_name)(*args, stream)
     if rc != 0:
         raise RuntimeError(f"{name}: kernel launch failed with cudaError {rc}")
-    LAUNCHES[name] += 1
+    if count:
+        LAUNCHES[name] += 1
 
 
 def recompute_backward(plain):

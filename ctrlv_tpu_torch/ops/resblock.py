@@ -24,20 +24,35 @@ Layout: the port's. x and y are contiguous (N, C, H, W); the weights are
 (3, 3, C_in, C_out); the tests permute.
 
 On an H100 the kernel is bound by the tensor cores (2 * 2 * N*H*W * 9*C*C
-operations against 4 * N*C*H*W + 36 * C*C bytes). A TPU program holds a whole
-sample and both weight stacks in VMEM; a Hopper block cannot, so a call is
-five launches counted as one: the weights re-laid to (9, C_out, C_in) (anew
-on every call, so the copy is never stale when they train), GN1's sums, conv1
-(which also leaves per-tile sums of the rounded h in scratch), and conv2,
-which folds GN2 from those sums in a fixed order. h passes through device
-memory; no float atomics, so two runs agree to the bit. The source says more.
+operations against 4 * N*C*H*W + 36 * C*C bytes). A TPU program holds a
+whole sample and both weight stacks in VMEM; a Hopper block cannot, so a call
+is four launches counted as one: GN1's sums, conv1 (which also leaves
+per-(tile, sample) sums of the rounded h in scratch), GN2's sums folded from
+those in a fixed order, and conv2. Each convolution is an implicit GEMM on
+``wgmma`` (register A from the normalised input, staged with a zero halo;
+weight tiles by TMA), over M tiles of 128 pixels that are whole image rows of
+one or several samples, and 160 or 320 output channels a block (``_plan``).
+h passes through device memory; no float atomics, so two runs agree to the
+bit. The source says more.
 
-``_plan`` is the kernel's gate, a pure function of shape and dtype: bf16, C
-a multiple of 320 whose group size divides 160 (320, 640 and 1280 at 32
-groups), W a multiple of 8 that divides 128; H is free, the last tile of
-image rows is masked. ``resblock_supported`` adds the switch: off by
-default, because on the H100 the kernel lost the A/B of the denoise step to
-the two cuDNN convolutions with the norm kernel between them (PERF.md).
+The kernel reads each conv weight re-laid to (9, C_out, C_in). The copy is
+made once and reused while the weight is unchanged (``RelaidWeights``): the
+cache knows a weight by the tensor object and checks its ``data_ptr()``,
+``_version``, shape, dtype and device on every call. Writes in place
+(``copy_``, ``add_``, the port's optimizers, ``load_state_dict``) bump
+``_version`` and so cause a fresh re-layout; a write through ``.data`` does
+not bump it, and the kernel would go on reading the old copy. The cache holds
+one copy per weight (9 * C * C bf16: 29.5 MB at C = 1280) while the weight lives.
+
+``_plan`` is the kernel's gate and tiling, a pure function of shape and
+dtype, mirrored by ``make_plan`` in the source: bf16, C a multiple of 320
+whose group size divides 160 (320, 640 and 1280 at 32 groups), W a multiple
+of 8 that divides 128; H is free. The kernel is no slower than the library
+chain at any shape of the paths (PERF.md), so the model routes every shape
+the gate admits. ``resblock_supported`` adds the switch, off by default: the
+kernel wins the denoise step's A/B, but the stage-1 training micro-step is
+slower with it on, because its gradient recomputes through the f32 plain
+version (PERF.md).
 
 A CPU tensor takes the plain version. A CUDA tensor launches the kernel or
 raises, also on a shape the gate refuses. The gradient recomputes through
@@ -48,6 +63,8 @@ reference; the TPU kernel has no backward kernel either.
 from __future__ import annotations
 
 import ctypes
+import weakref
+from typing import Callable, NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -56,9 +73,31 @@ from ._launch import check_operand, launch, with_recompute
 
 _ENABLED = False
 
-# as csrc/resblock.cu has them: output pixels and output channels of a block,
-# input channels of a chunk
-_TILE_PIXELS, _COUT_BLOCK, _K_CHUNK = 128, 160, 64
+# as csrc/resblock.cu has them: output pixels of a block and output channels
+# of one of its products, input channels of a stage, the bf16 row stride of an
+# A buffer, the bytes of a 160 x 64 weight tile, the epilogue's f32 tile and
+# the barriers, the shared memory a block may take, and an H100's SMs
+_TILE_PIXELS, _COUT_BLOCK, _K_CHUNK, _A_ROW = 128, 160, 64, 72
+_B_TILE, _OUT_BYTES, _BAR_BYTES = 160 * 64 * 2, 160 * (128 + 4) * 4, 8 * 12
+_MAX_STAGES, _SMEM_MAX, _SMS = 4, 232448 - 1024, 132
+
+
+class Plan(NamedTuple):
+    """The kernel's tiling of one call (``make_plan`` in csrc/resblock.cu)."""
+
+    rows: int      # image rows of a 128-pixel M tile (128 / W)
+    tiles: int     # M tiles over the N * H image rows; only the last is ragged
+    max_seg: int   # samples one tile touches, at most
+    slots: int     # pixel slots of an A buffer: (rows + 2 * max_seg) * (W + 2)
+    halves: int    # output channels of a block: 160 * halves
+    stages: int    # weight stages in flight
+    smem: int      # dynamic shared memory of a block, bytes
+    cblocks: int   # blocks along the output channels
+    padding: float  # share of the M tiles' pixels past the last image row
+
+    @property
+    def blocks(self) -> int:
+        return self.tiles * self.cblocks
 
 
 def set_fused_resblock(on: bool) -> None:
@@ -67,24 +106,77 @@ def set_fused_resblock(on: bool) -> None:
     _ENABLED = bool(on)
 
 
+def _samples_touched(g0: int, rows: int, total_rows: int, h: int) -> int:
+    return (min(g0 + rows, total_rows) - 1) // h - g0 // h + 1
+
+
 def _plan(n: int, c: int, h: int, w: int, groups: int, dtype):
-    """(image rows of a tile, tiles of a sample, channel blocks), or None
-    where the kernel does not take the shape."""
+    """The ``Plan`` of a call, or None where the kernel does not take the shape."""
     if dtype != torch.bfloat16 or groups < 1 or c < 1 or c % groups:
         return None
     if c % _COUT_BLOCK or c % _K_CHUNK or _COUT_BLOCK % (c // groups):
         return None
-    if w < 8 or w % 8 or _TILE_PIXELS % w or h < 1:
+    if w < 8 or w % 8 or _TILE_PIXELS % w or h < 1 or n < 1:
+        return None
+    if n * c * h * w >= 2**31:
         return None
     rows = _TILE_PIXELS // w
-    tiles = -(-h // rows)
-    if not 0 < n <= 65535 or tiles > 65535 or n * c * h * w >= 2**31:
-        return None
-    return rows, tiles, c // _COUT_BLOCK
+    tiles = -(-n * h // rows)
+    # tile t starts at image row t * rows: the pattern of samples repeats within h tiles
+    max_seg = max(_samples_touched(t * rows, rows, n * h, h) for t in range(min(tiles, h)))
+    slots = (rows + 2 * max_seg) * (w + 2)
+    a_bytes = 2 * slots * _A_ROW * 2
+    fixed = 1024 + a_bytes + _BAR_BYTES + 4 * (2 * c + 2 * max_seg * groups)
+    # 320 output channels a block where that still leaves a block for every SM
+    for halves in (2, 1):
+        if c % (_COUT_BLOCK * halves) or (halves == 2 and tiles * (c // 320) < _SMS):
+            continue
+        for stages in range(_MAX_STAGES, 1, -1):
+            ring = stages * halves * _B_TILE
+            if fixed + ring <= _SMEM_MAX and ring + a_bytes >= _OUT_BYTES:
+                return Plan(rows, tiles, max_seg, slots, halves, stages, fixed + ring,
+                            c // (_COUT_BLOCK * halves), 1.0 - n * h / (tiles * rows))
+    return None
 
 
 def resblock_supported(n: int, c: int, h: int, w: int, groups: int, dtype) -> bool:
     return _ENABLED and _plan(n, c, h, w, groups, dtype) is not None
+
+
+class RelaidWeights:
+    """``relayout(w)`` once per weight and per state of it: the copy is
+    served again while ``w`` is the same tensor object with the same
+    ``data_ptr()``, ``_version``, shape, dtype and device. An entry goes when
+    its tensor does; ``relayouts`` counts the copies made."""
+
+    def __init__(self, relayout: Callable[[torch.Tensor], torch.Tensor]):
+        self._relayout = relayout
+        self._cache: dict = {}  # id(w) -> (weak reference to w, its state, the copy)
+        self.relayouts = 0
+
+    def __call__(self, w: torch.Tensor) -> torch.Tensor:
+        state = (w.data_ptr(), w._version, tuple(w.shape), w.dtype, w.device)
+        hit = self._cache.get(id(w))
+        if hit is not None and hit[0]() is w and hit[1] == state:
+            return hit[2]
+        if hit is None or hit[0]() is not w:
+            weakref.finalize(w, self._cache.pop, id(w), None)
+        out = self._relayout(w)
+        self.relayouts += 1
+        self._cache[id(w)] = (weakref.ref(w), state, out)
+        return out
+
+
+def _relayout_cuda(w: torch.Tensor) -> torch.Tensor:
+    """(C_out, C_in, 3, 3) -> (9, C_out, C_in) on the card, by the kernel's helper."""
+    c = w.shape[0]
+    out = torch.empty((9, c, c), dtype=torch.bfloat16, device=w.device)
+    launch("resblock", "ctrlv_resblock_relayout", w.device, w.data_ptr(), out.data_ptr(), c,
+           count=False)
+    return out
+
+
+relaid_weights = RelaidWeights(_relayout_cuda)
 
 
 def fused_resblock2d_plain(x, g1, b1, w1, wb1, temb, g2, b2, w2, wb2, groups: int = 32,
@@ -145,17 +237,17 @@ def _resblock_cuda(x, g1, b1, w1, wb1, temb, g2, b2, w2, wb2, groups: int, eps: 
     for v in (*vectors, temb):
         check_operand("fused_resblock2d", v, v.dtype, x.device)
     g1, b1, wb1, g2, b2, wb2 = vectors
-    _, tiles, _ = plan
+    wr1, wr2 = relaid_weights(w1), relaid_weights(w2)
     y, hidden = torch.empty_like(x), torch.empty_like(x)
-    w_relaid = torch.empty((2, 9, c, c), dtype=torch.bfloat16, device=x.device)
     stats1 = torch.empty((n, groups, 2), dtype=torch.float32, device=x.device)
-    stats2 = torch.empty((n, tiles, groups, 2), dtype=torch.float32, device=x.device)
+    stats2 = torch.empty((plan.tiles, plan.max_seg, groups, 2), dtype=torch.float32,
+                         device=x.device)
     launch(
         "resblock", "ctrlv_resblock_fwd", x.device,
-        x.data_ptr(), g1.data_ptr(), b1.data_ptr(), w1.data_ptr(), wb1.data_ptr(),
-        temb.data_ptr(), g2.data_ptr(), b2.data_ptr(), w2.data_ptr(), wb2.data_ptr(),
-        y.data_ptr(), hidden.data_ptr(), w_relaid.data_ptr(), stats1.data_ptr(),
-        stats2.data_ptr(), n, c, h, w, groups, int(g1.dtype == torch.bfloat16),
+        x.data_ptr(), g1.data_ptr(), b1.data_ptr(), wr1.data_ptr(), wb1.data_ptr(),
+        temb.data_ptr(), g2.data_ptr(), b2.data_ptr(), wr2.data_ptr(), wb2.data_ptr(),
+        y.data_ptr(), hidden.data_ptr(), stats1.data_ptr(), stats2.data_ptr(),
+        n, c, h, w, groups, int(g1.dtype == torch.bfloat16),
         int(temb.dtype == torch.bfloat16), ctypes.c_float(eps),
     )
     return y

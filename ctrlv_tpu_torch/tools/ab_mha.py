@@ -54,17 +54,18 @@ TIMED = [
 ]
 
 
-def build(name: str, patches, root: Path):
-    src = (_build.CSRC / "mha.cu").read_text()
+def build(name: str, patches, root: Path, source: str = "mha.cu"):
+    """The kernel library with ``source`` patched, built under ``root``."""
+    src = (_build.CSRC / source).read_text()
     for old, new in patches:
         if old not in src:
-            raise SystemExit(f"ab_mha: variant {name!r}: patch target not found: {old!r}")
+            raise SystemExit(f"ab: variant {name!r}: patch target not found in {source}: {old!r}")
         src = src.replace(old, new)
     tag = "".join(ch if ch.isalnum() else "_" for ch in name)
     csrc = root / tag / "csrc"
     shutil.rmtree(csrc, ignore_errors=True)
     shutil.copytree(_build.CSRC, csrc)
-    (csrc / "mha.cu").write_text(src)
+    (csrc / source).write_text(src)
     keep = _build.CSRC, _build.BUILD_ROOT
     _build.CSRC, _build.BUILD_ROOT, _build._lib = csrc, root / tag / "build", None
     try:

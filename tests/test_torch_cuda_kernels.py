@@ -398,10 +398,17 @@ def _resblock_operands(n, c, h, w, device, seed=0, pdtype=torch.bfloat16):
 @pytest.mark.parametrize("pdtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
 @pytest.mark.parametrize("n,c,h,w", [(2, 320, 40, 64), (3, 320, 11, 16), (2, 640, 20, 32),
                                      (2, 1280, 10, 16), (2, 1280, 5, 8), (1, 320, 1, 128),
-                                     (2, 320, 3, 8)])
+                                     (2, 320, 3, 8), (7, 1280, 5, 8), (5, 1280, 10, 16),
+                                     (9, 320, 40, 64), (17, 1280, 1, 8)])
 def test_resblock_kernel_matches_plain(cuda, n, c, h, w, pdtype):
     """Whole tiles, a ragged last tile of image rows, every width the gate
-    admits; norm parameters and biases in bf16 or f32, temb in the other."""
+    admits; tiles that span several samples (5x8: 3.2 a tile, 10x16: 0.8, one-row
+    images: 16), 320 output channels a block (9 x 40 x 64); norm parameters and
+    biases in bf16 or f32, temb in the other."""
+    if (n, h) in ((7, 5), (5, 10), (17, 1)):
+        assert resblock._plan(n, c, h, w, 32, torch.bfloat16).max_seg >= 2
+    if (n, h) == (9, 40):
+        assert resblock._plan(n, c, h, w, 32, torch.bfloat16).halves == 2
     ops = _resblock_operands(n, c, h, w, cuda, seed=h, pdtype=pdtype)
     if pdtype == torch.bfloat16:
         ops[5] = ops[5].float()  # temb in f32, as the JAX function takes it
@@ -412,6 +419,25 @@ def test_resblock_kernel_matches_plain(cuda, n, c, h, w, pdtype):
     assert _launch.LAUNCHES["resblock"] == before + 2
     assert out.shape == (n, c, h, w) and out.dtype == torch.bfloat16
     assert torch.equal(out, again)  # no atomics: the same bits every time
+    assert_close(out, resblock.fused_resblock2d_plain(*ops, 32, 1e-5))
+
+
+def test_resblock_kernel_follows_a_weight_changed_in_place(cuda):
+    """The re-laid weights are cached: a frozen weight is re-laid once; an
+    update in place under no_grad makes a fresh copy, and the next output is
+    the plain version's with the new weight."""
+    ops = _resblock_operands(3, 640, 10, 16, cuda, seed=4)
+    before = resblock.relaid_weights.relayouts
+    first = resblock.fused_resblock2d(*ops, 32, 1e-5)
+    again = resblock.fused_resblock2d(*ops, 32, 1e-5)
+    assert resblock.relaid_weights.relayouts == before + 2  # w1 and w2, once each
+    assert torch.equal(first, again)
+    with torch.no_grad():
+        ops[8].add_(0.5 * ops[8].flip(0))
+    out = resblock.fused_resblock2d(*ops, 32, 1e-5)
+    torch.cuda.synchronize()
+    assert resblock.relaid_weights.relayouts == before + 3
+    assert not torch.equal(out, first)
     assert_close(out, resblock.fused_resblock2d_plain(*ops, 32, 1e-5))
 
 

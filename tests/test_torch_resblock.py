@@ -206,9 +206,10 @@ def test_gate_admits_what_the_jax_gate_admits():
         assert jax_resblock.resblock_supported(2560, 320, 32, 2)
     finally:
         jax_resblock.set_fused_resblock(False)
-    rows, tiles, blocks = resblock._plan(50, 320, 40, 64, 32, torch.bfloat16)
-    assert (rows, tiles, blocks) == (2, 20, 2)
-    assert resblock._plan(50, 1280, 10, 16, 32, torch.bfloat16) == (8, 2, 8)
+    plan = resblock._plan(50, 320, 40, 64, 32, torch.bfloat16)
+    assert (plan.rows, plan.tiles, plan.cblocks) == (2, 1000, 1)
+    plan = resblock._plan(50, 1280, 10, 16, 32, torch.bfloat16)
+    assert (plan.rows, plan.tiles, plan.max_seg, plan.cblocks) == (8, 63, 2, 4)
 
 
 @pytest.fixture
@@ -307,3 +308,114 @@ def test_launch_counter_and_exports():
     before = dict(_launch.LAUNCHES)
     resblock.fused_resblock2d(*to_port(inputs(1, 8, 8, 64)), 8, 1e-6)
     assert dict(_launch.LAUNCHES) == before  # the plain version counts no launch
+
+
+# (N, C, H, W) -> (image rows a tile, tiles, samples a tile at most, output
+# channels a block, blocks, padding share): the 12 shapes chip_smoke.py times.
+PLANS = [
+    ((50, 320, 40, 64), (2, 1000, 1, 320, 1000, 0.0)),
+    ((25, 320, 40, 64), (2, 500, 1, 320, 500, 0.0)),
+    ((250, 320, 40, 64), (2, 5000, 1, 320, 5000, 0.0)),
+    ((50, 640, 20, 32), (4, 250, 1, 320, 500, 0.0)),
+    ((50, 1280, 10, 16), (8, 63, 2, 320, 252, 1 - 500 / 504)),
+    ((50, 1280, 5, 8), (16, 16, 4, 160, 128, 1 - 250 / 256)),
+    ((25, 640, 20, 32), (4, 125, 1, 320, 250, 0.0)),
+    ((25, 1280, 10, 16), (8, 32, 2, 160, 256, 1 - 250 / 256)),  # 128 blocks of 320: too few
+    ((25, 1280, 5, 8), (16, 8, 4, 160, 64, 1 - 125 / 128)),
+    ((250, 640, 20, 32), (4, 1250, 1, 320, 2500, 0.0)),
+    ((250, 1280, 10, 16), (8, 313, 2, 320, 1252, 1 - 2500 / 2504)),
+    ((250, 1280, 5, 8), (16, 79, 4, 320, 316, 1 - 1250 / 1264)),
+]
+
+
+@pytest.mark.parametrize("shape,want", PLANS, ids=[str(s) for s, _ in PLANS])
+def test_plan_table(shape, want):
+    """The tiling as csrc/resblock.cu's make_plan has it: 128-pixel tiles of
+    whole image rows over all samples (only the call's last tile is ragged),
+    320 output channels a block where that leaves a block for every SM."""
+    plan = resblock._plan(*shape, 32, torch.bfloat16)
+    rows, tiles, max_seg, width, blocks, padding = want
+    assert (plan.rows, plan.tiles, plan.max_seg, 160 * plan.halves, plan.blocks) == (
+        rows, tiles, max_seg, width, blocks)
+    assert plan.padding == pytest.approx(padding, abs=1e-12)
+    assert plan.smem <= 232448 - 1024 and 2 <= plan.stages <= 4
+    n, _, h, w = shape
+    assert plan.tiles * plan.rows >= n * h > (plan.tiles - 1) * plan.rows
+
+
+def test_plan_fits_every_admitted_shape():
+    """The worst staging of the gate's shapes: W = 8 and one-row images, so a
+    tile holds 16 samples, each with two halo rows; it still fits."""
+    plan = resblock._plan(64, 1280, 1, 8, 32, torch.bfloat16)
+    assert (plan.max_seg, plan.slots, plan.halves) == (16, 480, 1)
+    assert plan.smem <= 232448 - 1024
+
+
+def _permute_relayout(w):
+    """The kernel's re-layout, (C_out, C_in, 3, 3) -> (9, C_out, C_in), on the CPU."""
+    return w.detach().permute(2, 3, 0, 1).reshape(9, *w.shape[:2]).clone()
+
+
+def _cache_and_weight(seed=0, c=8):
+    cache = resblock.RelaidWeights(_permute_relayout)
+    w = torch.nn.Parameter(torch.randn(c, c, 3, 3, generator=torch.Generator().manual_seed(seed)))
+    return cache, w
+
+
+def test_weight_cache_relays_a_frozen_weight_once():
+    cache, w = _cache_and_weight()
+    first = cache(w)
+    for _ in range(3):
+        assert cache(w) is first
+    assert cache.relayouts == 1
+    torch.testing.assert_close(first[4], w.detach()[:, :, 1, 1], atol=0, rtol=0)
+
+
+@pytest.mark.parametrize("write", ["copy_", "adamw", "load_state_dict"])
+def test_weight_cache_relays_after_an_update(write):
+    """Every way the port writes a weight bumps its version: a fresh copy."""
+    from ctrlv_tpu_torch.train import make_optimizer
+
+    cache, w = _cache_and_weight()
+    old = cache(w)
+    if write == "copy_":
+        with torch.no_grad():
+            w.copy_(torch.randn_like(w))
+    elif write == "adamw":
+        tx = make_optimizer(learning_rate=1e-2, nan_guard_steps=0)
+        state = tx.init({"w": w})
+        tx.update({"w": torch.ones_like(w)}, state, {"w": w})
+    else:
+        conv = torch.nn.Conv2d(8, 8, 3, padding=1, bias=False)
+        conv.weight = w
+        conv.load_state_dict({"weight": torch.randn(8, 8, 3, 3)})
+    new = cache(w)
+    assert cache.relayouts == 2 and new is not old
+    torch.testing.assert_close(new, _permute_relayout(w), atol=0, rtol=0)
+    assert cache(w) is new
+
+
+def test_weight_cache_knows_tensors_apart():
+    """Another tensor of the same shape is not served the first one's copy,
+    and a copy goes with its tensor."""
+    cache, w = _cache_and_weight()
+    _, other = _cache_and_weight(seed=1)
+    cache(w)
+    torch.testing.assert_close(cache(other), _permute_relayout(other), atol=0, rtol=0)
+    assert cache.relayouts == 2
+    del other
+    import gc
+
+    gc.collect()
+    assert len(cache._cache) == 1
+
+
+def test_ab_variants_patch_the_source():
+    """Each design variant of ``tools/ab_resblock.py`` still finds what it
+    patches in csrc/resblock.cu, once."""
+    from ctrlv_tpu_torch.tools import ab_resblock
+
+    src = (ab_resblock._build.CSRC / "resblock.cu").read_text()
+    for name, patches in ab_resblock.VARIANTS.items():
+        for old, _ in patches:
+            assert src.count(old) == 1, (name, old)
