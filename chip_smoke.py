@@ -10,13 +10,13 @@ eight hand-written CUDA kernels:
    TF32 switches;
 2. build: the kernels from ctrlv_tpu_torch/csrc with nvcc (sm_90a), one
    nvcc per source, all started together; then, per kernel of csrc/mha.cu
-   (K1 and K8) and per convolution kernel of csrc/resblock.cu (K7), its
-   count of wgmma (HGMMA), TMA load (UTMALDG) and mma.sync (HMMA)
-   instructions in the built library's SASS;
+   (K1 and K8), csrc/geglu_ff.cu (K6) and per convolution kernel of
+   csrc/resblock.cu (K7), its count of wgmma (HGMMA), TMA load (UTMALDG)
+   and mma.sync (HMMA) instructions in the built library's SASS;
 3. kernels: each kernel against its plain PyTorch version at the shapes the
-   paths give it (and at ragged shapes): max abs error (K1, K7 and K8 also
-   run twice and must agree to the bit; K7 prints its tiling and shows its
-   cache of re-laid weights at work), and CUDA-event times
+   paths give it (and at ragged shapes): max abs error (K1, K6, K7 and K8
+   also run twice and must agree to the bit; K6 and K7 print their tiling,
+   K7 shows its cache of re-laid weights at work), and CUDA-event times
    of the kernel, its plain version and the one PyTorch library call that
    computes the same function, beside the least time the card could take;
    then each kernel under autograd at a shape of the training step: its
@@ -25,21 +25,24 @@ eight hand-written CUDA kernels:
 4. small: the Box2Video sampler and the overall pipeline at a small config
    that still routes the kernels (head dim 64, 1024 latent tokens), in bf16
    on the card against the same weights and draws in f32 on the CPU;
-5. step: one full-width ControlNet+UNet denoise step with all kernels, with
-   each of K3, K4, K5, K8 switched off in turn, with K4 on its split path
-   only, with K6 and with K7 (both off by default) switched on, and with all
-   plain;
+5. step: one full-width ControlNet+UNet denoise step with all default
+   kernels, with each of K3, K4, K5, K8 switched off in turn, with K4 on its
+   split path only, with K6 (on by default) switched off, with K7 (off by
+   default) switched on, and with all plain;
 6. sampler: two Box2Video requests: 25 frames at 512x320, CFG 1 -> 3, 25
    Euler steps, decode chunk 8, synthetic bbox frames;
-7. overall: one two-stage request: five stage-1 candidates in one batch
+7. overall: a two-stage request: five stage-1 candidates in one batch
    (30 steps, frames-major UNet), cleanup and IoU select on the card, then
-   Box2Video on the winner (25 steps). The result's keys, shapes and ranges
+   Box2Video on the winner (25 steps); once with K6 on (its default) and
+   once with K6 off, for its A/B. The result's keys, shapes and ranges
    and every kernel's launch count are checked;
 8. train: the ControlNet training step on one clip of 25 frames at 512x320
    ("seq" layout, block checkpointing, encode chunk 5, AdamW with a bf16
    first moment): a warm-up micro-step, two optimizer updates at
-   accumulation 2 with K6 on, then one micro-step each with K6 on, K6 off
-   and all plain from the same parameters and draws. Loss, gradients, which
+   accumulation 2 with K6 on (it takes the feed-forwards that want no
+   gradient: the frozen UNet's down blocks'), then one micro-step each with
+   K6 on, K6 off and all plain from the same parameters and draws, and six
+   more timings of each in turns for K6's A/B. Loss, gradients, which
    parameters moved and when, and every kernel's launch count are checked;
 9. train_svd: the stage-1 training step in the temporal regime (the bbox
    predictor: only the temporal transformer blocks train, as a partitioned
@@ -52,7 +55,8 @@ eight hand-written CUDA kernels:
 
 ``python3 chip_smoke.py --profile [DIR]`` instead builds the models and
 prints one step's device time by kind of kernel (torch.profiler; the tables
-by kernel go to DIR, by default output/), with K7 off and on in turns.
+by kernel go to DIR, by default output/), with K7 off and on in turns, then
+K6 off and on.
 
 Prints a JSON line of the kernels, then, as the last line,
 {"ok": true, "device": {...}}. A failed check exits non-zero before that
@@ -121,6 +125,8 @@ DEVICE = "cuda"
 # FLOP/s, f32 FLOP/s outside the tensor cores.
 PEAK_BYTES, PEAK_BF16, PEAK_F32 = 3.35e12, 989e12, 67e12
 SMS = 132  # its streaming multiprocessors
+# kernels whose plain versions `[kernels]` times with fewer calls (K1, K6, K7)
+SLOW_PLAIN = ("mha", "geglu_ff", "resblock")
 # |kernel - plain| <= KERNEL_TOL * (1 + |plain|) elementwise: the attention
 # kernels round P to bf16 at other places than their plain versions, the norm
 # kernels sum in another order, and the output itself is bf16 (ulp 2^-8 relative).
@@ -244,12 +250,15 @@ KERNEL_CASES = [
     ("geglu_ff", dict(shape=(128000, 320)), True),
     ("geglu_ff", dict(shape=(32000, 640)), True),
     ("geglu_ff", dict(shape=(640000, 320)), True),
+    ("geglu_ff", dict(shape=(160000, 640)), True),
     ("geglu_ff", dict(shape=(64000, 320), ln=True), True),
     ("geglu_ff", dict(shape=(16000, 640), ln=True), True),
     ("geglu_ff", dict(shape=(128000, 320), ln=True), True),
     ("geglu_ff", dict(shape=(32000, 640), ln=True), True),
-    ("geglu_ff", dict(shape=(1001, 320)), False),  # ragged rows: 15 blocks and 41 rows
+    ("geglu_ff", dict(shape=(1001, 320)), False),  # ragged rows: 7 tiles of 128 and 105 rows
     ("geglu_ff", dict(shape=(999, 640), ln=True), False),
+    ("geglu_ff", dict(shape=(100, 320)), False),  # less than one tile of 128 rows
+    ("geglu_ff", dict(shape=(129, 640), ln=True), False),  # two tiles of 64 rows and one row
     # The training micro-step (one clip: a batch of 25 frames, "seq" layout)
     # for the older kernels. K2 runs at the two levels with 256 pixels or more;
     # the VAE encoder takes chunks of 5 frames and the first frame alone.
@@ -362,15 +371,15 @@ def phase_build() -> None:
     for line in info["log"].splitlines():
         if "Used" in line or "spill" in line or "Compiling entry" in line:
             print(f"[build]   {line.strip()}")
-    # K1 and K8 (csrc/mha.cu) and K7's convolutions (csrc/resblock.cu) are
-    # wgmma products fed by TMA: every instantiation has HGMMA and UTMALDG in
-    # its SASS, and no HMMA (mma.sync).
+    # K1 and K8 (csrc/mha.cu), K6 (csrc/geglu_ff.cu) and K7's convolutions
+    # (csrc/resblock.cu) are wgmma products fed by TMA: every instantiation
+    # has HGMMA and UTMALDG in its SASS, and no HMMA (mma.sync).
     sass = subprocess.run([_build.cuda_tool("cuobjdump"), "-sass", info["path"]],
                           capture_output=True, text=True, timeout=300)
     if sass.returncode != 0:
         fail(f"cuobjdump -sass failed: {sass.stderr[-2000:]}")
     ops, fn = ("HGMMA", "UTMALDG", "HMMA"), None
-    counts = {"mha.cu": {}, "resblock.cu": {}}
+    counts = {"mha.cu": {}, "geglu_ff.cu": {}, "resblock.cu": {}}
     for line in sass.stdout.splitlines():
         if "Function :" in line:
             fn = None
@@ -378,6 +387,11 @@ def phase_build() -> None:
             if m:
                 fn = ("mha.cu", "mha_fwd_kernel<" + ",".join(re.findall(r"\d+", m.group(1)))
                       + "> (D, consumer warpgroups, keys a tile, stages)")
+            m = re.search(r"15geglu_ff_kernelINS0_3CfgIL((?:i\d+EL)+)b([01])EEELb([01])EE", line)
+            if m:
+                c, s1, s2 = re.findall(r"\d+", m.group(1))
+                fn = ("geglu_ff.cu", f"geglu_ff_kernel<C {c}, {s1} W1 / {s2} W2 stages, "
+                      f"ping-pong {m.group(2)}, LayerNorm {m.group(3)}>")
             m = re.search(r"11conv_kernelILb([01])ELi(\d+)EE", line)
             if m:
                 fn = ("resblock.cu", f"conv_kernel<{('conv2', 'conv1')[int(m.group(1))]}, "
@@ -570,6 +584,17 @@ def phase_kernels() -> dict:
             line += f" plan(q rows, keys, stages)={plan} equal_to_the_bit_twice={same}"
             if not same:
                 fail(f"{kind} at {spec}: two runs on the same inputs differ")
+        if kind == "geglu_ff":
+            m, c = spec["shape"]
+            plan = geglu_ff._plan(m, c, 4 * c, c, torch.bfloat16)
+            same = torch.equal(out, kern())
+            line += (f" plan: {plan.rows} rows a block, steps of {plan.step} inner columns "
+                     f"(first products of {plan.sub}), {plan.w1_stages} W1 / {plan.w2_stages} W2 "
+                     f"stages, ping-pong {plan.ping_pong}, "
+                     f"{plan.smem} bytes of shared memory, {plan.blocks} blocks = "
+                     f"{plan.blocks / SMS:.2f} waves on {SMS} SMs; equal_to_the_bit_twice={same}")
+            if not same:
+                fail(f"{kind} at {spec}: two runs on the same inputs differ")
         if kind == "resblock":
             plan = resblock._plan(*spec["shape"], spec.get("groups", 32), torch.bfloat16)
             same = torch.equal(out, kern())
@@ -583,7 +608,11 @@ def phase_kernels() -> dict:
         res = results[kind]
         if timed:
             t_bytes, t_ops = 1e3 * nbytes / PEAK_BYTES, 1e3 * flops / rate
-            times = dict(ms=cuda_time_ms(kern, inner=8), plain_ms=cuda_time_ms(plain, inner=8),
+            # K1's, K6's and K7's plain versions take milliseconds a call: 3 timings
+            # of 2 calls keep the script inside its time; the others as the kernels
+            plain_ms = (cuda_time_ms(plain, reps=3, warmup=1, inner=2) if kind in SLOW_PLAIN
+                        else cuda_time_ms(plain, inner=8))
+            times = dict(ms=cuda_time_ms(kern, inner=8), plain_ms=plain_ms,
                          library_ms=cuda_time_ms(lib, inner=8), bound_ms=max(t_bytes, t_ops))
             for key, val in times.items():
                 res[key].append(val)
@@ -591,7 +620,7 @@ def phase_kernels() -> dict:
             line += (f" kernel_ms={times['ms']:.4f} plain_ms={times['plain_ms']:.4f} "
                      f"library_ms={times['library_ms']:.4f} bound_ms={times['bound_ms']:.4f} "
                      f"(bytes {t_bytes:.4f}, operations {t_ops:.4f})")
-            if kind == "resblock":
+            if kind in ("geglu_ff", "resblock"):
                 line += f" share_of_bf16_peak={100 * t_ops / times['ms']:.1f}%"
             if (kind == "group_norm"
                     and out[0].numel() // spec.get("groups", 32) <= group_norm._SMEM_RUN_ELEMS):
@@ -806,11 +835,11 @@ def decode_calls(frames: int, chunk: int, max_frames) -> int:
     return (-(-n_full // per_call) if n_full else 0) + (1 if rem else 0)
 
 
-def expected_launches(models, forwards: dict, temporal: dict) -> dict:
+def expected_launches(models, forwards: dict, temporal: dict, k6: bool = True) -> dict:
     """Launches a path should make. ``forwards``: calls of each net (for the
     VAE its encoder and decoder apart); ``temporal``: for each UNet or
     ControlNet the temporal kernel it takes and whether its batch puts the
-    mid block over the kernel's gate of 256 pixels."""
+    mid block over the kernel's gate of 256 pixels; ``k6``: K6's switch."""
     nets = dict(models, enc=models["vae"].encoder, dec=models["vae"].decoder)
     exp = dict.fromkeys(_launch.LAUNCHES, 0)
     for key, calls in forwards.items():
@@ -823,6 +852,7 @@ def expected_launches(models, forwards: dict, temporal: dict) -> dict:
             exp["mha"] += calls * per["mha"]
             exp["flash"] += calls * per["flash"]
             exp[name] += calls * (per["temporal"] + (1 if mid else 0))
+            exp["geglu_ff"] += calls * count_routed_ff(nets[key]) * k6
     return exp
 
 
@@ -849,10 +879,10 @@ def make_step(models):
 
 @torch.no_grad()
 def phase_step(models) -> None:
-    """One full-width ControlNet+UNet step: all six default kernels' worth
-    (the frames-major layout puts K3 in K2's place), each newer kernel
-    switched off in turn, K6 and K7 (off by default) switched on in turn, and
-    all plain. In turns, forwards and backwards."""
+    """One full-width ControlNet+UNet step: all default kernels' worth (the
+    frames-major layout puts K3 in K2's place), each newer kernel switched
+    off in turn, K7 (off by default) switched on, and all plain. In turns,
+    forwards and backwards."""
     step, h, w = make_step(models)
     nets = (models["ctrl"], models["unet"])
 
@@ -864,7 +894,7 @@ def phase_step(models) -> None:
         group_norm.set_fused_group_norm(variant != "K4 off")
         layer_norm.set_fused_layer_norm(variant != "K5 off")
         attention.set_attention_impl("xla" if variant == "K8 off" else "auto")
-        geglu_ff.set_fused_geglu_ff(variant == "K6 on")
+        geglu_ff.set_fused_geglu_ff(variant != "K6 off")
         resblock.set_fused_resblock(variant == "K7 on")
         try:
             if variant == "all plain":
@@ -876,10 +906,10 @@ def phase_step(models) -> None:
             group_norm.set_fused_group_norm(True)
             layer_norm.set_fused_layer_norm(True)
             attention.set_attention_impl("auto")
-            geglu_ff.set_fused_geglu_ff(False)
+            geglu_ff.set_fused_geglu_ff(True)
             resblock.set_fused_resblock(False)
 
-    variants = ("all kernels", "K3 off", "K4 off", "K4 split", "K5 off", "K8 off", "K6 on",
+    variants = ("all kernels", "K3 off", "K4 off", "K4 split", "K5 off", "K8 off", "K6 off",
                 "K7 on", "all plain")
     _launch.reset_launch_counts()
     preds = {v: run(v, step) for v in ("all kernels", "all plain")}
@@ -889,22 +919,24 @@ def phase_step(models) -> None:
                                {"ctrl": ("small_mha_fm", False), "unet": ("small_mha_fm", False)})
     if counts != expect:
         fail(f"one step launched {counts}, expected {expect}")
-    # K6 on: the same launches plus one for every feed-forward its gate admits
+    # K6 on (the default): one launch for every feed-forward its gate admits; off: none
+    routed_ff = expect["geglu_ff"]
+    if not routed_ff:
+        fail("no feed-forward of the step is routed to geglu_ff")
     _launch.reset_launch_counts()
-    preds["K6 on"] = run("K6 on", step)
+    preds["K6 off"] = run("K6 off", step)
     torch.cuda.synchronize()
     counts_k6 = dict(_launch.LAUNCHES)
-    expect["geglu_ff"] = count_routed_ff(models["ctrl"]) + count_routed_ff(models["unet"])
-    if counts_k6 != expect or not expect["geglu_ff"]:
-        fail(f"one step with K6 on launched {counts_k6}, expected {expect}")
-    rel_k6 = ((preds["K6 on"] - preds["all plain"]).norm() / preds["all plain"].norm()).item()
+    if counts_k6 != dict(expect, geglu_ff=0):
+        fail(f"one step with K6 off launched {counts_k6}, expected {dict(expect, geglu_ff=0)}")
+    rel_k6 = ((preds["K6 off"] - preds["all plain"]).norm() / preds["all plain"].norm()).item()
     # K7 on: one launch for every ResBlock its gate admits, whose two norms K4 no longer sees
     _launch.reset_launch_counts()
     preds["K7 on"] = run("K7 on", step)
     torch.cuda.synchronize()
     counts_k7 = dict(_launch.LAUNCHES)
     routed = {k: routed_resblocks_of(models[k], 2 * FRAMES, h, w) for k in ("ctrl", "unet")}
-    expect_k7 = dict(expect, geglu_ff=0, resblock=sum(routed.values()),
+    expect_k7 = dict(expect, resblock=sum(routed.values()),
                      group_norm=expect["group_norm"] - 2 * sum(routed.values()))
     if counts_k7 != expect_k7 or not expect_k7["resblock"]:
         fail(f"one step with K7 on launched {counts_k7}, expected {expect_k7}")
@@ -925,8 +957,8 @@ def phase_step(models) -> None:
     print(f"[step] all kernels vs all plain: rel_l2={rel:.3e} (tol {STEP_TOL}) "
           f"max_abs_err={err:.3e} |pred|max={pred_plain.abs().max().item():.3e}; "
           f"launches {counts}", flush=True)
-    print(f"[step] K6 on vs all plain: rel_l2={rel_k6:.3e}; {counts_k6['geglu_ff']} launches of "
-          f"geglu_ff a step (the feed-forwards at C = 320 and 640; C = 1280 by the gate to the "
+    print(f"[step] K6 off vs all plain: rel_l2={rel_k6:.3e}; {routed_ff} launches of geglu_ff a "
+          f"step with K6 on (the feed-forwards at C = 320 and 640; C = 1280 by the gate to the "
           f"unfused path)", flush=True)
     print(f"[step] K7 on vs all plain: rel_l2={rel_k7:.3e}; {counts_k7['resblock']} launches of "
           f"resblock a step ({routed['unet']} same-channel spatial ResBlocks of the UNet, "
@@ -1014,7 +1046,8 @@ def phase_small_reference() -> None:
           f"{res['best_guidance']} vs {res_ref['best_guidance']}, miou {res['miou']:.4f} vs "
           f"{res_ref['miou']:.4f}, video mean_abs={mean_err:.3e} max_abs={max_err:.3e}, "
           f"launches {counts}", flush=True)
-    if any(v == 0 for k, v in counts.items() if k not in ("geglu_ff", "resblock")):  # off by default
+    # K6's gate admits no width of the small config; K7 is off by default
+    if any(v == 0 for k, v in counts.items() if k not in ("geglu_ff", "resblock")):
         fail(f"small overall did not reach every kernel: {counts}")
     if not (torch.isfinite(lat).all() and rel <= SMALL_LATENT_TOL):
         fail("small stage-1 latents on the card differ from their f32 reference")
@@ -1097,13 +1130,16 @@ def phase_sampler(models, card: str) -> dict:
 
 
 def phase_overall(models, card: str) -> dict:
-    """One two-stage request with the JAX package's defaults (this slice's
-    main path): five candidates, 30 + 25 steps, decode chunk 8."""
+    """Two two-stage requests with the JAX package's defaults (five
+    candidates, 30 + 25 steps, decode chunk 8): K6 on, its default (this
+    slice's main path, whose launches are returned), then K6 off, for its
+    A/B."""
     bbox = VideoDiffusionPipeline(models["unet1"], models["vae"], models["clip"])
     ctrl = StableVideoControlPipeline(models["unet"], models["ctrl"], models["vae"],
                                       models["clip"])
     pipe = OverallPipeline(bbox, ctrl)
     image, cond = synthetic_request(2)
+    n = len(GUIDANCE_PAIRS)
 
     # Time the stages through the pipelines' own calls; the select is the rest.
     stage_secs = {}
@@ -1120,48 +1156,56 @@ def phase_overall(models, card: str) -> dict:
 
     pipe.bbox_pipeline = timed("stage1", bbox)
     pipe.ctrl_pipeline = timed("stage2", ctrl)
-    torch.cuda.reset_peak_memory_stats()
-    torch.cuda.synchronize()
-    _launch.reset_launch_counts()
-    t0 = time.perf_counter()
-    res = pipe(image[0], cond[0], generator=torch.Generator(device=DEVICE).manual_seed(2),
-               num_frames=FRAMES, stage1_steps=STAGE1_STEPS, stage2_steps=STAGE2_STEPS,
-               decode_chunk_size=CHUNK, max_decode_frames=MAX_DECODE_FRAMES)
-    torch.cuda.synchronize()
-    secs = time.perf_counter() - t0
-    counts = dict(_launch.LAUNCHES)
-    peak = torch.cuda.max_memory_allocated() / 2**30
-    select = secs - stage_secs["stage1"] - stage_secs["stage2"]
-    print(f"[overall] {len(GUIDANCE_PAIRS)} candidates x {FRAMES} frames at {W}x{H}: "
-          f"{secs:.3f} s/request = stage 1 {stage_secs['stage1']:.3f} s ({STAGE1_STEPS} steps, "
-          f"UNet batch {2 * len(GUIDANCE_PAIRS)}x{FRAMES}) + select {select:.3f} s + stage 2 "
-          f"{stage_secs['stage2']:.3f} s ({STAGE2_STEPS} steps); max_decode_frames "
-          f"{MAX_DECODE_FRAMES}; max_memory_allocated {peak:.2f} GiB; card {card}", flush=True)
-    print(f"[overall] best_guidance {res['best_guidance']} miou {res['miou']:.4f} ap "
-          f"{res['ap']:.4f} ar {res['ar']:.4f} first/last {res['miou_first_last']:.4f}; "
-          f"launches {counts}", flush=True)
+    results = {}
+    for k6 in (True, False):
+        geglu_ff.set_fused_geglu_ff(k6)
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        _launch.reset_launch_counts()
+        t0 = time.perf_counter()
+        try:
+            res = pipe(image[0], cond[0], generator=torch.Generator(device=DEVICE).manual_seed(2),
+                       num_frames=FRAMES, stage1_steps=STAGE1_STEPS, stage2_steps=STAGE2_STEPS,
+                       decode_chunk_size=CHUNK, max_decode_frames=MAX_DECODE_FRAMES)
+            torch.cuda.synchronize()
+        finally:
+            geglu_ff.set_fused_geglu_ff(True)
+        secs = time.perf_counter() - t0
+        counts = dict(_launch.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        select = secs - stage_secs["stage1"] - stage_secs["stage2"]
+        tag = "K6 on (default)" if k6 else "K6 off"
+        print(f"[overall] {tag}: {n} candidates x {FRAMES} frames at {W}x{H}: {secs:.3f} "
+              f"s/request = stage 1 {stage_secs['stage1']:.3f} s ({STAGE1_STEPS} steps, UNet "
+              f"batch {2 * n}x{FRAMES}) + select {select:.3f} s + stage 2 "
+              f"{stage_secs['stage2']:.3f} s ({STAGE2_STEPS} steps); max_decode_frames "
+              f"{MAX_DECODE_FRAMES}; max_memory_allocated {peak:.2f} GiB; card {card}", flush=True)
+        print(f"[overall] {tag}: best_guidance {res['best_guidance']} miou {res['miou']:.4f} ap "
+              f"{res['ap']:.4f} ar {res['ar']:.4f} first/last {res['miou_first_last']:.4f}; "
+              f"launches {counts}", flush=True)
 
-    keys = {"video", "bbox_video", "miou", "ap", "ar", "miou_first_last", "ap_first_last",
-            "ar_first_last", "best_guidance"}
-    if set(res) != keys:
-        fail(f"overall result has keys {sorted(res)}")
-    check_clip("the overall video", res["video"], (FRAMES, H, W, 3))
-    check_clip("the overall bbox video", res["bbox_video"], (FRAMES, H, W, 3))
-    if res["best_guidance"] not in GUIDANCE_PAIRS:
-        fail(f"best_guidance {res['best_guidance']}")
-    scores = [res[k] for k in sorted(keys - {"video", "bbox_video", "best_guidance"})]
-    if not all(isinstance(s, float) and 0.0 <= s <= 1.0 for s in scores):
-        fail(f"overall scores {scores}")
-    n = len(GUIDANCE_PAIRS)
-    expect = expected_launches(
-        models,
-        {"clip": 2, "enc": 4, "ctrl": STAGE2_STEPS, "unet": STAGE2_STEPS, "unet1": STAGE1_STEPS,
-         "dec": decode_calls(FRAMES, CHUNK, MAX_DECODE_FRAMES) * 2},
-        {"ctrl": ("small_mha", False), "unet": ("small_mha", False),
-         "unet1": ("small_mha_fm", 2 * n * 40 >= 256)},
-    )
-    check_launches("the overall request", counts, expect)
-    return counts
+        keys = {"video", "bbox_video", "miou", "ap", "ar", "miou_first_last", "ap_first_last",
+                "ar_first_last", "best_guidance"}
+        if set(res) != keys:
+            fail(f"overall result has keys {sorted(res)}")
+        check_clip("the overall video", res["video"], (FRAMES, H, W, 3))
+        check_clip("the overall bbox video", res["bbox_video"], (FRAMES, H, W, 3))
+        if res["best_guidance"] not in GUIDANCE_PAIRS:
+            fail(f"best_guidance {res['best_guidance']}")
+        scores = [res[k] for k in sorted(keys - {"video", "bbox_video", "best_guidance"})]
+        if not all(isinstance(s, float) and 0.0 <= s <= 1.0 for s in scores):
+            fail(f"overall scores {scores}")
+        expect = expected_launches(
+            models,
+            {"clip": 2, "enc": 4, "ctrl": STAGE2_STEPS, "unet": STAGE2_STEPS,
+             "unet1": STAGE1_STEPS, "dec": decode_calls(FRAMES, CHUNK, MAX_DECODE_FRAMES) * 2},
+            {"ctrl": ("small_mha", False), "unet": ("small_mha", False),
+             "unet1": ("small_mha_fm", 2 * n * 40 >= 256)},
+            k6=k6,
+        )
+        check_launches(f"the overall request with {tag}", counts, expect)
+        results[k6] = counts
+    return results[True]
 
 
 class KeepGradients:
@@ -1176,7 +1220,7 @@ class KeepGradients:
 
 
 def train_expected_launches(nets, block_runs, batch: int, lat_hw, encoder_calls: int,
-                            k6: bool = False, k7: bool = False) -> dict:
+                            k6_ff: int = 0, k7: bool = False) -> dict:
     """Launches of one training micro-step in the "seq" layout with block
     checkpointing. ``block_runs`` lists (block, level, forwards) for the UNet's
     and the ControlNet's blocks: a checkpointed block that carries a graph runs
@@ -1184,7 +1228,8 @@ def train_expected_launches(nets, block_runs, batch: int, lat_hw, encoder_calls:
     norm, the VAE encoder and CLIP. Level i has 1 / 4**i of the latent's tokens
     a frame; the spatial attention takes K1 from 1024 tokens and K8 from 128, the
     temporal one K2 from 256 pixels in the batch; a ResBlock that K7 takes
-    launches no K4 for its two norms."""
+    launches no K4 for its two norms. K6 takes only the forwards of routed
+    feed-forwards that want no gradient: ``k6_ff``, which the caller counts."""
     exp = dict.fromkeys(_launch.LAUNCHES, 0)
     h, w = lat_hw
     for block, level, runs in block_runs:
@@ -1197,7 +1242,7 @@ def train_expected_launches(nets, block_runs, batch: int, lat_hw, encoder_calls:
         exp["mha"] += runs * n_tr * (s >= 1024)
         exp["flash"] += runs * n_tr * (128 <= s < 1024)
         exp["small_mha"] += runs * n_tr * (batch * s >= 256)
-        exp["geglu_ff"] += runs * count_routed_ff(block) * k6
+    exp["geglu_ff"] = k6_ff
     exp["group_norm"] += 1  # the UNet's conv_norm_out
     exp["group_norm"] += encoder_calls * count_modules(nets["vae"].encoder, layers.GroupNorm)
     exp["layer_norm"] += count_modules(nets["clip"], layers.LayerNorm)
@@ -1227,10 +1272,11 @@ def against_plain(result: dict, ref_name: str = "all plain") -> None:
                  f"{res['loss_rel']}, {res['grad_rel']}")
 
 
-def make_micro_step(clips, bbox, draws, switch, on_variant: str):
+def make_micro_step(clips, bbox, draws, switch, on_variant: str, default: bool):
     """A runner of one training micro-step on the batch under a variant's
-    switches: ``on_variant`` turns ``switch`` (a kernel that is off by
-    default) on, "all plain" selects every plain version.
+    switches: ``on_variant`` turns ``switch`` (a kernel's, whose default is
+    ``default``) on and every other variant off, "all plain" selects every
+    plain version; the switch is put back to its default after.
     ``micro_step(step_fn, state, variant) -> (state, metrics, seconds, launches)``."""
 
     def micro_step(step_fn, st, variant: str):
@@ -1245,7 +1291,7 @@ def make_micro_step(clips, bbox, draws, switch, on_variant: str):
             else:
                 st, metrics = step_fn(st, clips, bbox, draws=draws)
         finally:
-            switch(False)
+            switch(default)
         torch.cuda.synchronize()
         return st, metrics, time.perf_counter() - t1, dict(_launch.LAUNCHES)
 
@@ -1297,11 +1343,13 @@ def run_updates(tag: str, micro_step, step, state, tx, variant: str, expect: dic
     return state, path_counts, step_secs, update_secs, peak
 
 
-def run_variants(micro_step, probe, probe_state, variants, off_expect: dict) -> dict:
+def run_variants(micro_step, probe, probe_state, variants, expects: dict,
+                 rounds: int = 1) -> dict:
     """One micro-step a variant from the same parameters and draws with the
-    gradients kept, then two more timings a variant, in turns backwards and
-    forwards. The second variant is the default configuration, the last all
-    plain; loss and gradients are held against all plain."""
+    gradients kept, then 2 * ``rounds`` more timings a variant, in turns
+    backwards and forwards. The last variant is all plain, which launches nothing; each
+    other one launches what ``expects`` has for it. Loss and gradients are
+    held against all plain."""
     result = {}
     for variant in variants:
         st, metrics, secs, counts = micro_step(probe, probe_state, variant)
@@ -1309,15 +1357,16 @@ def run_variants(micro_step, probe, probe_state, variants, off_expect: dict) -> 
         result[variant] = dict(loss=loss, norm=norm, secs=[secs], counts=counts,
                                grads=st.opt_state["grads"])
         st.opt_state = {}
-    for order in (variants[::-1], variants):
+    for order in (variants[::-1], variants) * rounds:
         for variant in order:
             st, _, secs, _ = micro_step(probe, probe_state, variant)
             st.opt_state = {}
             result[variant]["secs"].append(secs)
-    default, plain = result[variants[1]], result["all plain"]
-    if default["counts"] != off_expect or any(plain["counts"].values()):
-        fail(f"{variants[1]} launched {default['counts']}, expected {off_expect}; all plain "
-             f"launched {plain['counts']}")
+    for variant, expect in expects.items():
+        if result[variant]["counts"] != expect:
+            fail(f"{variant} launched {result[variant]['counts']}, expected {expect}")
+    if any(result["all plain"]["counts"].values()):
+        fail(f"all plain launched {result['all plain']['counts']}")
     against_plain(result)
     return result
 
@@ -1325,8 +1374,9 @@ def run_variants(micro_step, probe, probe_state, variants, off_expect: dict) -> 
 def report_variants(tag: str, title: str, result: dict, updates, card: str) -> None:
     _, _, step_secs, update_secs, peak = updates
     on, off, plain = result
-    print(f"[{tag}] {title}: s/micro-step, median of three taken in turns: "
-          + ", ".join(f"{v} {np.median(result[v]['secs']):.3f}" for v in result) + " (the three: "
+    n = len(result[on]["secs"])
+    print(f"[{tag}] {title}: s/micro-step, median of {n} taken in turns: "
+          + ", ".join(f"{v} {np.median(result[v]['secs']):.3f}" for v in result) + f" (the {n}: "
           + "; ".join(", ".join(f"{x:.3f}" for x in result[v]["secs"]) for v in result)
           + f"); the {2 * ACCUM} accumulated micro-steps with {on}, without their updates, "
           f"{', '.join(f'{x:.3f}' for x in step_secs)} s; optimizer update "
@@ -1384,7 +1434,7 @@ def phase_train(models, card: str) -> dict:
     block_runs = ([(b, lvl, 2) for b, lvl in blocks_by_level(ctrl)]
                   + [(b, lvl, 2 if id(b) in up else 1) for b, lvl in blocks_by_level(unet)])
 
-    micro_step = make_micro_step(clips, bbox, draws, geglu_ff.set_fused_geglu_ff, "K6 on")
+    micro_step = make_micro_step(clips, bbox, draws, geglu_ff.set_fused_geglu_ff, "K6 on", True)
     frozen = {k: {n: p.detach().clone() for n, p in nets[k].state_dict().items()}
               for k in ("unet", "vae", "clip")}
     probe_state = init_train_state(ctrl, probe_tx)
@@ -1393,11 +1443,15 @@ def phase_train(models, card: str) -> dict:
           flush=True)
 
     # Two optimizer updates at accumulation 2, K6 on: the main path's run.
-    expect = train_expected_launches(nets, block_runs, 1, lat[:2], encoder_calls, k6=True)
+    # K6 takes the feed-forwards that want no gradient: those of the frozen
+    # UNet's down blocks, which carry no graph and run once
+    k6_ff = sum(count_routed_ff(b) for b, _, runs in block_runs if runs == 1)
+    expect = train_expected_launches(nets, block_runs, 1, lat[:2], encoder_calls, k6_ff=k6_ff)
     updates = run_updates("train", micro_step, step, state, tx, "K6 on", expect)
     off_expect = train_expected_launches(nets, block_runs, 1, lat[:2], encoder_calls)
+    # K6's routing A/B: seven timings a variant
     result = run_variants(micro_step, probe, probe_state, ("K6 on", "K6 off", "all plain"),
-                          off_expect)
+                          {"K6 on": expect, "K6 off": off_expect}, rounds=3)
     ref = result["all plain"]
     zero_convs = [k for k in ref["grads"] if k.startswith(("controlnet_down_blocks",
                                                            "controlnet_mid_block"))]
@@ -1466,7 +1520,7 @@ def phase_train_svd(models, card: str) -> dict:
     encoder_calls = -(-FRAMES // ENCODE_CHUNK) + 1
     block_runs = [(b, lvl, 2) for b, lvl in blocks_by_level(unet)]
 
-    micro_step = make_micro_step(clips, bbox, draws, resblock.set_fused_resblock, "K7 on")
+    micro_step = make_micro_step(clips, bbox, draws, resblock.set_fused_resblock, "K7 on", False)
     frozen = {k: {n: p.detach().clone() for n, p in nets[k].named_parameters()
                   if not (k == "unet" and temporal_blocks_predicate(n))}
               for k in nets}
@@ -1475,7 +1529,11 @@ def phase_train_svd(models, card: str) -> dict:
           f"{check_metrics('warm-up', metrics)[0]:.4f}", flush=True)
 
     # Two optimizer updates at accumulation 2, K7 on: the main path's run.
-    expect = train_expected_launches(nets, block_runs, 1, lat[:2], encoder_calls, k7=True)
+    # K6 takes the one routed feed-forward before the first trained parameter,
+    # the first down block's first spatial transformer block's, in both runs
+    k6_ff = 2 * count_routed_ff(unet.down_blocks[0].attentions[0].transformer_blocks[0])
+    expect = train_expected_launches(nets, block_runs, 1, lat[:2], encoder_calls, k6_ff=k6_ff,
+                                     k7=True)
     updates = run_updates("train_svd", micro_step, step, state, tx, "K7 on", expect)
     state, path_counts = updates[:2]
     for k in nets:
@@ -1487,9 +1545,10 @@ def phase_train_svd(models, card: str) -> dict:
         fail("a parameter outside the temporal transformer blocks asks for a gradient")
     del frozen
 
-    off_expect = train_expected_launches(nets, block_runs, 1, lat[:2], encoder_calls)
+    off_expect = train_expected_launches(nets, block_runs, 1, lat[:2], encoder_calls,
+                                         k6_ff=k6_ff)
     result = run_variants(micro_step, probe, probe_state, ("K7 on", "K7 off", "all plain"),
-                          off_expect)
+                          {"K7 on": expect, "K7 off": off_expect})
     # the query and key of a one-token cross-attention, and the norm in front of
     # it, are not reached by the loss; every other trained tensor must be
     unreached = (".attn2.to_q.", ".attn2.to_k.", ".norm2.")
@@ -1583,15 +1642,18 @@ KERNEL_KINDS = (
 def profile_step(models, card: str, out_dir: str) -> None:
     """A reading, not a check: the device time of one ControlNet+UNet step by
     kind of kernel (torch.profiler), with K7 off and on in turns (off, on, on,
-    off); the tables by kernel go to ``out_dir``/step_profile_k7_{off,on}.txt."""
+    off; K6 on, its default), then K6 off and on the same way (K7 off); the
+    tables by kernel go to ``out_dir``/step_profile_{k7,k6}_{off,on}.txt."""
     from torch.profiler import ProfilerActivity, profile
 
     step, _, _ = make_step(models)
     set_temporal_layout((models["ctrl"], models["unet"]), "frames_major")
     device_ms = {}
     os.makedirs(out_dir, exist_ok=True)
-    for variant in ("K7 off", "K7 on", "K7 on", "K7 off"):
+    for variant in ("K7 off", "K7 on", "K7 on", "K7 off", "K6 off", "K6 on", "K6 on", "K6 off"):
         resblock.set_fused_resblock(variant == "K7 on")
+        if variant.startswith("K6"):
+            geglu_ff.set_fused_geglu_ff(variant == "K6 on")
         try:
             ms = cuda_time_ms(step, reps=3, warmup=2)
             with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -1599,6 +1661,7 @@ def profile_step(models, card: str, out_dir: str) -> None:
                 torch.cuda.synchronize()
         finally:
             resblock.set_fused_resblock(False)
+            geglu_ff.set_fused_geglu_ff(True)
         by_kind, total, n_kernels = {}, 0.0, 0
         for evt in prof.key_averages():
             if evt.device_type != torch.autograd.DeviceType.CUDA:
@@ -1617,7 +1680,7 @@ def profile_step(models, card: str, out_dir: str) -> None:
               f"card {card}")
         for kind, us in sorted(by_kind.items(), key=lambda kv: -kv[1]):
             print(f"[profile]   {kind}: {us / 1e3:.1f} ms, {100 * us / total:.1f} %")
-        name = f"step_profile_k7_{variant.split()[1]}.txt"
+        name = f"step_profile_{variant.split()[0].lower()}_{variant.split()[1]}.txt"
         with open(os.path.join(out_dir, name), "w") as fh:
             fh.write(prof.key_averages().table(sort_by="self_cuda_time_total", row_limit=80,
                                                max_name_column_width=90))
@@ -1660,14 +1723,12 @@ def main() -> None:
             bound_by=by[0],  # of the first, largest shape
             library_ms=float(np.mean(res["library_ms"])),
         ))
-        # K1-K5 and K8 belong to the overall path, and all of them but K3 to the
-        # Box2Video and training paths ("seq" layout); K6 is on while the ControlNet
-        # trains, K7 while stage 1 does.
-        switched = ("geglu_ff", "resblock")
-        on = {"box2video": kind not in ("small_mha_fm", *switched),
-              "overall": kind not in switched,
+        # K1-K6 and K8 belong to the overall path, and all of them but K3 to the
+        # Box2Video and training paths ("seq" layout); K7 to stage 1's training.
+        on = {"box2video": kind not in ("small_mha_fm", "resblock"),
+              "overall": kind != "resblock",
               "train": kind not in ("small_mha_fm", "resblock"),
-              "train_svd": kind not in ("small_mha_fm", "geglu_ff")}
+              "train_svd": kind != "small_mha_fm"}
         if any((paths[name][kind] > 0) != due for name, due in on.items()):
             fail(f"{kind} was not launched on its paths: {rows[-1]['launches_by_path']}")
     print(f"[done] {time.perf_counter() - t_start:.1f} s")

@@ -234,7 +234,10 @@ class FeedForward(nn.Module):
     While ``set_fused_geglu_ff`` is on and the flattened (rows, C) shape
     passes ``geglu_ff_supported``, the whole chain is one call of the fused
     kernel on the same parameters, as in the JAX package; otherwise the two
-    Linears with the gelu gate between."""
+    Linears with the gelu gate between. Where autograd wants a gradient of
+    the call (of x or of a parameter), the two Linears run, unlike in the
+    JAX package: the kernel's backward would recompute through them, so the
+    kernel would only add its own time (PERF.md)."""
 
     def __init__(self, dim: int, dim_out: Optional[int] = None, mult: int = 4):
         super().__init__()
@@ -248,7 +251,10 @@ class FeedForward(nn.Module):
         proj, out = self.net[0].proj, self.net[2]
         c_in = x.shape[-1]
         m = x.numel() // c_in
-        if geglu_ff_supported(m, c_in, out.in_features, out.out_features, x.dtype):
+        wants_grad = torch.is_grad_enabled() and (
+            x.requires_grad or any(p.requires_grad for p in self.parameters()))
+        if not wants_grad and geglu_ff_supported(m, c_in, out.in_features, out.out_features,
+                                                 x.dtype):
             fn = geglu_ff_plain if mha.plain_selected() else geglu_ff
             y = fn(x.reshape(m, c_in), proj.weight, proj.bias, out.weight, out.bias)
             return y.reshape(x.shape[:-1] + (out.out_features,))

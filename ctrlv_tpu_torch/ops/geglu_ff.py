@@ -18,18 +18,27 @@ intermediate never in device memory; ``_ln`` normalises each row first (f32
 fast variance, f32 gamma and beta). The weights are ``nn.Linear``'s, read
 where they lie: W1 is (2*inner, C_in) with a's rows first, W2 is
 (C_out, inner). On an H100 the kernel is bound by the tensor cores
-(6*M*C*inner operations against 4*M*C + 6*C*inner bytes); one block holds 64
-(C = 320) or 32 (C = 640) rows of x in shared memory and y's f32 accumulator
-in registers, and walks ``inner`` in chunks whose weight slices it streams
-with cp.async. The source says more.
+(6*M*C*inner operations against 4*M*C + 6*C*inner bytes); inside the card
+the erf gelu between the products and the weight bytes every block takes
+from L2 weigh too. It is a warp-specialised back-to-back GEMM: a producer
+warp copies x's tile once and the weights through rings of stages by TMA
+(the weights kept in L2 by a cache hint), and two consumer warpgroups run
+both products as ``wgmma`` with the gelu between them in registers.
+``_plan`` gives its tiling (``Plan``, mirrored from the source): 128 rows a
+block at C = 320, 64 at C = 640, where the register file holds no more of
+y's f32 accumulator. The source says more.
 
-``_plan`` is the kernel's gate, a pure function of shape and dtype. It
-admits what one block can hold: C_in = C_out in {320, 640}. Wider rows
-(C = 1280 would need a 320 KB accumulator) take the unfused path by the
-gate, as the JAX package does where its ``_plan`` finds no tiling.
-``geglu_ff_supported`` adds the switch: off by default, because on the H100
-the kernel lost the A/B of the denoise step and of the training micro-step
-to the two cuBLAS products (PERF.md).
+``_plan`` is also the kernel's gate, a pure function of shape and dtype. It
+admits what a block can hold: C_in = C_out in {320, 640}. Wider rows
+(C = 1280 would need a 64 x 640 accumulator a warpgroup) take the unfused
+path by the gate, as the JAX package does where its ``_plan`` finds no
+tiling; the JAX ``_plan`` tiles C = 1280 too, so there the port computes
+the unfused arithmetic (tanh gelu), at most a bf16 ulp of act away.
+``geglu_ff_supported`` adds the switch: on by default, because on the H100
+the kernel won the A/B of the denoise step's device time and of the overall
+request (PERF.md). ``FeedForward`` takes the kernel only where autograd
+wants no gradient of the call: the gradient recomputes through the unfused
+chain, so in training the kernel only added its own time.
 
 A CPU tensor takes the plain version. A CUDA tensor launches the kernel or
 raises, also on a shape the gate refuses. The gradient recomputes through
@@ -40,6 +49,7 @@ unfused path.
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -47,10 +57,28 @@ import torch.nn.functional as F
 from ._launch import check_operand, launch, with_recompute
 from .layer_norm import layer_norm_plain
 
-_ENABLED = False
+_ENABLED = True
 
-# C -> (rows per block, inner chunk, warps), as csrc/geglu_ff.cu instantiates it
-_BLOCKS = {320: (64, 64, 8), 640: (32, 32, 8)}
+# C -> (W1 stages, W2 stages, ping-pong), as csrc/geglu_ff.cu's Plan320 and
+# Plan640 have them
+_PLANS = {320: (8, 2, True), 640: (3, 1, False)}
+_SUB = 32  # inner columns of a consumer's first product (a and g: 2 * _SUB)
+# registers a thread of the producer and of a consumer warpgroup after setmaxnreg
+_PRODUCER_REGS, _CONSUMER_REGS = 24, 240
+_SMEM_MAX = 232448  # the shared memory a block may take on an H100
+
+
+class Plan(NamedTuple):
+    """The kernel's tiling of one call (``Cfg`` and ``launch`` in csrc/geglu_ff.cu)."""
+
+    rows: int        # rows of x a block: 128 at C = 320 (64 a consumer warpgroup), 64 at 640
+    sub: int         # inner columns of a consumer's first product (a and g: 2 * sub)
+    step: int        # inner columns of a step: sub, or 2 * sub where the consumers split y
+    w1_stages: int   # ring of 64-column K slabs of the step's W1 rows
+    w2_stages: int   # ring of (C, 64) slices of W2
+    ping_pong: bool  # the consumers take turns to issue their products
+    smem: int        # dynamic shared memory of a block, bytes
+    blocks: int      # tiles of rows
 
 
 def set_fused_geglu_ff(on: bool) -> None:
@@ -60,13 +88,18 @@ def set_fused_geglu_ff(on: bool) -> None:
 
 
 def _plan(m: int, c_in: int, inner: int, c_out: int, dtype):
-    """(rows per block, inner chunk, warps) of the kernel, or None where no
-    block can hold the shape."""
-    if dtype != torch.bfloat16 or c_in != c_out or c_in not in _BLOCKS:
+    """The kernel's ``Plan`` of a call, or None where no block can hold the shape."""
+    if dtype != torch.bfloat16 or c_in != c_out or c_in not in _PLANS:
         return None
     if inner % 64 or not 0 < m < 2**31 // c_in:
         return None
-    return _BLOCKS[c_in]
+    s1, s2, ping_pong = _PLANS[c_in]
+    split = c_in == 640  # the consumers split y's columns, not its rows
+    rows, step = (64, 2 * _SUB) if split else (128, _SUB)
+    x_bytes, act_bytes = rows * c_in * 2, rows * 128 if split else 0
+    smem = (1024 + x_bytes + act_bytes + s2 * c_in * 128 + s1 * 2 * step * 128
+            + 8 * (1 + 2 * s1 + 2 * s2))
+    return Plan(rows, _SUB, step, s1, s2, ping_pong and not split, smem, -(-m // rows))
 
 
 def geglu_ff_supported(m: int, c_in: int, inner: int, c_out: int, dtype) -> bool:
@@ -125,7 +158,7 @@ def _check_cuda(x, w1, b1, w2, b2):
     if _plan(m, c_in, inner, c_out, x.dtype) is None:
         raise ValueError(
             f"geglu_ff: no block holds (M, C_in, inner, C_out) = {(m, c_in, inner, c_out)}; "
-            f"the kernel takes C_in = C_out in {sorted(_BLOCKS)} and inner a multiple of 64"
+            f"the kernel takes C_in = C_out in {sorted(_PLANS)} and inner a multiple of 64"
         )
     return m, c_in, inner
 

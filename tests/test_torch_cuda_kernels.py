@@ -331,9 +331,12 @@ def _ff_operands(m, c, device, seed=0, ln=False):
     return ops
 
 
+# A block holds 128 rows at C = 320 and 64 at C = 640: one row, whole tiles, and
+# a last tile of one row or of part of a tile.
 @pytest.mark.parametrize("ln", [False, True], ids=["ff", "ff_ln"])
-@pytest.mark.parametrize("m,c", [(64, 320), (4096, 320), (1001, 320), (1, 320),
-                                 (32, 640), (4096, 640), (999, 640)])
+@pytest.mark.parametrize("m,c", [(64, 320), (4096, 320), (1001, 320), (1, 320), (128, 320),
+                                 (129, 320), (256, 320), (257, 320), (32, 640), (4096, 640),
+                                 (999, 640), (64, 640), (128, 640), (129, 640)])
 def test_geglu_ff_kernel_matches_plain(cuda, m, c, ln):
     ops = _ff_operands(m, c, cuda, seed=m, ln=ln)
     fn, plain = ((geglu_ff.geglu_ff_ln, geglu_ff.geglu_ff_ln_plain) if ln
@@ -344,6 +347,7 @@ def test_geglu_ff_kernel_matches_plain(cuda, m, c, ln):
     assert _launch.LAUNCHES["geglu_ff"] == before + 1
     assert out.shape == (m, c) and out.dtype == torch.bfloat16
     assert_close(out, plain(*ops))
+    assert torch.equal(out, fn(*ops))  # no float atomics: the same bits twice
 
 
 def test_geglu_ff_raises_instead_of_falling_back(cuda):
@@ -364,9 +368,11 @@ def test_feed_forward_module_routes_to_the_kernel(cuda):
     ff = layers.FeedForward(320).to(cuda, torch.bfloat16)
     wide = layers.FeedForward(1280).to(cuda, torch.bfloat16)
     x = torch.randn(2, 300, 320, device=cuda, dtype=torch.bfloat16)
+    default = geglu_ff._ENABLED
     with torch.no_grad():
-        off = ff(x)
         try:
+            geglu_ff.set_fused_geglu_ff(False)
+            off = ff(x)
             geglu_ff.set_fused_geglu_ff(True)
             _launch.reset_launch_counts()
             out = ff(x)
@@ -376,7 +382,7 @@ def test_feed_forward_module_routes_to_the_kernel(cuda):
                 plain = ff(x)
             assert _launch.LAUNCHES["geglu_ff"] == 1
         finally:
-            geglu_ff.set_fused_geglu_ff(False)
+            geglu_ff.set_fused_geglu_ff(default)
     torch.cuda.synchronize()
     assert out.shape == x.shape
     assert_close(out, plain)

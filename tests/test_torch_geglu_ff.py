@@ -15,7 +15,10 @@ g, their product and y are each rounded to bf16 (2^-8 relative) and the
 gradients pass through the unfused path's tanh gelu on the JAX side: 2e-2.
 """
 
+import copy
 import importlib
+import re
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -134,13 +137,19 @@ def _ff_pair(dim, seed):
     return params, load(layers.FeedForward(dim), params)
 
 
+@pytest.fixture(scope="module")
+def ff_pair_320():
+    """``_ff_pair(320, 3)``, built once for the module's cases."""
+    return _ff_pair(320, 3)
+
+
 @pytest.mark.parametrize("bf16", [False, True], ids=["f32", "bf16"])
-def test_feed_forward_routes_like_jax_with_the_switch_on(jax_switch_on, bf16):
+def test_feed_forward_routes_like_jax_with_the_switch_on(jax_switch_on, ff_pair_320, bf16):
     """bf16 at C = 320: both packages route FeedForward to their fused kernel
     (the port's, on the CPU, to its plain version). f32: the JAX package
     still fuses, the port's gate refuses f32 and takes the unfused path."""
     dim = 320
-    params, port = _ff_pair(dim, 3)
+    params, port = ff_pair_320[0], copy.deepcopy(ff_pair_320[1])
     x = np.random.default_rng(4).standard_normal((1, 128, dim)).astype(np.float32)
     jdt = jnp.bfloat16 if bf16 else jnp.float32
     assert jax_ff.geglu_ff_supported(128, dim, 4 * dim, dim, 2 if bf16 else 4)
@@ -153,6 +162,7 @@ def test_feed_forward_routes_like_jax_with_the_switch_on(jax_switch_on, bf16):
     calls = []
     real = layers.geglu_ff
     layers.geglu_ff = lambda *a: calls.append(a[0].shape) or real(*a)
+    default = port_ff._ENABLED
     port_ff.set_fused_geglu_ff(True)
     try:
         assert port_ff.geglu_ff_supported(128, dim, 4 * dim, dim, tdt) is bf16
@@ -165,7 +175,7 @@ def test_feed_forward_routes_like_jax_with_the_switch_on(jax_switch_on, bf16):
             off = port(xt)
     finally:
         layers.geglu_ff = real
-        port_ff.set_fused_geglu_ff(False)
+        port_ff.set_fused_geglu_ff(default)
     assert calls == ([(128, dim)] if bf16 else [])  # flattened to (M, C), once
     assert out.shape == (1, 128, dim) and out.dtype == tdt
     assert torch.equal(plain, out)  # on the CPU the wrapper is its plain version
@@ -173,6 +183,36 @@ def test_feed_forward_routes_like_jax_with_the_switch_on(jax_switch_on, bf16):
     _close(off.float().numpy(), ref, bf16, "switch off")
     if bf16:
         assert not torch.equal(off, out)  # erf against tanh gelu, other roundings
+
+
+def test_feed_forward_takes_the_chain_where_a_gradient_is_wanted(ff_pair_320):
+    """bf16 at C = 320, the switch on: the port's FeedForward calls the fused
+    wrapper only where autograd wants no gradient of the call. Where it wants
+    one (of a parameter or of x), the two Linears run, and the output is the
+    JAX package's with its switch off."""
+    params, port = ff_pair_320[0], copy.deepcopy(ff_pair_320[1]).to(torch.bfloat16)
+    x = np.random.default_rng(5).standard_normal((1, 128, 320)).astype(np.float32)
+    jmod = jax_layers.FeedForward(320, dtype=jnp.bfloat16)
+    ref = jmod.apply(params, jnp.asarray(x, jnp.bfloat16))
+    xt = torch.from_numpy(x).bfloat16()
+    calls = []
+    real = layers.geglu_ff
+    layers.geglu_ff = lambda *a: calls.append(a[0].shape) or real(*a)
+    try:
+        assert port_ff.geglu_ff_supported(128, 320, 1280, 320, torch.bfloat16)
+        with torch.no_grad():
+            fused = port(xt)
+        chain = port(xt)  # the parameters ask for a gradient
+        port.requires_grad_(False)
+        frozen = port(xt)
+        chain_x = port(xt.clone().requires_grad_())
+    finally:
+        layers.geglu_ff = real
+    assert calls == [(128, 320), (128, 320)]  # no_grad, and the frozen module
+    assert chain.requires_grad and chain_x.requires_grad and not frozen.requires_grad
+    assert torch.equal(frozen, fused) and torch.equal(chain.detach(), chain_x.detach())
+    _close(chain.detach().float().numpy(), ref, True, "a gradient wanted")
+    assert not torch.equal(chain.detach(), fused)  # tanh against erf gelu, other roundings
 
 
 @pytest.mark.parametrize(
@@ -197,13 +237,13 @@ def test_feed_forward_routes_like_jax_with_the_switch_on(jax_switch_on, bf16):
 )
 def test_gate(m, c_in, inner, c_out, dtype, expect):
     assert (port_ff._plan(m, c_in, inner, c_out, dtype) is not None) is expect
-    assert not port_ff.geglu_ff_supported(m, c_in, inner, c_out, dtype)  # off by default
+    assert port_ff.geglu_ff_supported(m, c_in, inner, c_out, dtype) is expect  # on by default
     try:
-        port_ff.set_fused_geglu_ff(True)
-        assert port_ff.geglu_ff_supported(m, c_in, inner, c_out, dtype) is expect
-    finally:
         port_ff.set_fused_geglu_ff(False)
-    assert port_ff._ENABLED is False
+        assert not port_ff.geglu_ff_supported(m, c_in, inner, c_out, dtype)
+    finally:
+        port_ff.set_fused_geglu_ff(True)
+    assert port_ff._ENABLED is True
 
 
 def test_wrappers_reject_other_devices():
@@ -225,3 +265,63 @@ def test_unfused_is_the_modules_arithmetic():
         got = port_ff.geglu_ff_unfused(x.reshape(21, 64), proj.weight, proj.bias, out.weight,
                                        out.bias)
     assert torch.equal(got.reshape(3, 7, 64), ref)
+
+
+# (rows, width) -> (rows a block, inner columns of a first product, of a step,
+# W1 stages, W2 stages, ping-pong, blocks): the six shapes the paths time, and
+# ragged ones (one row, a part of the last tile)
+PLANS = [
+    ((64000, 320), (128, 32, 32, 8, 2, True, 500)),
+    ((16000, 640), (64, 32, 64, 3, 1, False, 250)),
+    ((128000, 320), (128, 32, 32, 8, 2, True, 1000)),
+    ((32000, 640), (64, 32, 64, 3, 1, False, 500)),
+    ((640000, 320), (128, 32, 32, 8, 2, True, 5000)),
+    ((160000, 640), (64, 32, 64, 3, 1, False, 2500)),
+    ((1, 320), (128, 32, 32, 8, 2, True, 1)),
+    ((1001, 320), (128, 32, 32, 8, 2, True, 8)),
+    ((999, 640), (64, 32, 64, 3, 1, False, 16)),
+    ((129, 640), (64, 32, 64, 3, 1, False, 3)),
+]
+
+
+@pytest.mark.parametrize("shape,want", PLANS, ids=[str(s) for s, _ in PLANS])
+def test_plan_table(shape, want):
+    """The tiling as csrc/geglu_ff.cu has it: 128 rows a block at C = 320, 64
+    at C = 640; it fits a block's shared memory, and the registers after
+    setmaxnreg fit the SM's file."""
+    m, c = shape
+    plan = port_ff._plan(m, c, 4 * c, c, torch.bfloat16)
+    assert tuple(plan[:6]) + (plan.blocks,) == want
+    assert plan.blocks * plan.rows >= m > (plan.blocks - 1) * plan.rows
+    assert plan.smem <= port_ff._SMEM_MAX
+    assert 128 * (port_ff._PRODUCER_REGS + 2 * port_ff._CONSUMER_REGS) <= 65536
+
+
+def test_plan_mirrors_the_source():
+    """``_PLANS``, the first product's width and the register split are
+    csrc/geglu_ff.cu's, and its shared-memory sum gives the same bytes."""
+    text = (Path(port_ff.__file__).parents[1] / "csrc" / "geglu_ff.cu").read_text()
+    for c, (s1, s2, ping_pong) in port_ff._PLANS.items():
+        line = f"using Plan{c} = Cfg<{c}, {s1}, {s2}, {str(ping_pong).lower()}>;"
+        assert text.count(line) == 1, line
+    assert text.count(f"static constexpr int kSub = {port_ff._SUB};") == 1
+    regs = dict(re.findall(r"constexpr int k(Producer|Consumer)Regs = (\d+);", text))
+    assert (int(regs["Producer"]), int(regs["Consumer"])) == (
+        port_ff._PRODUCER_REGS, port_ff._CONSUMER_REGS)
+    # C = 320: x 80 KB, two W2 stages of 40 KB, eight W1 stages of 8 KB, 21 barriers
+    assert port_ff._plan(64000, 320, 1280, 320, torch.bfloat16).smem == (
+        1024 + 81920 + 2 * 40960 + 8 * 8192 + 8 * 21)
+    # C = 640: x 80 KB, act 8 KB, one W2 stage of 80 KB, three W1 stages of 16 KB
+    assert port_ff._plan(16000, 640, 2560, 640, torch.bfloat16).smem == (
+        1024 + 81920 + 8192 + 81920 + 3 * 16384 + 8 * 9)
+
+
+def test_ab_variants_patch_the_source():
+    """Each design variant of ``tools/ab_geglu_ff.py`` still finds what it
+    patches in csrc/geglu_ff.cu, once."""
+    from ctrlv_tpu_torch.tools import ab_geglu_ff
+
+    src = (ab_geglu_ff._build.CSRC / "geglu_ff.cu").read_text()
+    for name, patches in ab_geglu_ff.VARIANTS.items():
+        for old, _ in patches:
+            assert src.count(old) == 1, (name, old)
