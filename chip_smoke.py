@@ -14,11 +14,17 @@ eight hand-written CUDA kernels:
    csrc/resblock.cu (K7), its count of wgmma (HGMMA), TMA load (UTMALDG)
    and mma.sync (HMMA) instructions in the built library's SASS;
 3. kernels: each kernel against its plain PyTorch version at the shapes the
-   paths give it (and at ragged shapes): max abs error (K1, K6, K7 and K8
-   also run twice and must agree to the bit; K6 and K7 print their tiling,
-   K7 shows its cache of re-laid weights at work), and CUDA-event times
-   of the kernel, its plain version and the one PyTorch library call that
-   computes the same function, beside the least time the card could take;
+   paths give it (and at ragged shapes): max abs error (K1 and K4-K8 also
+   run twice and must agree to the bit; K4-K7 print their plans, K7 shows
+   its cache of re-laid weights at work), and CUDA-event times of the
+   kernel, its plain version and the one PyTorch library call that computes
+   the same function, beside the least time the card could take; for K2-K5
+   and their library calls also the device time apart from the host's
+   (the calls queued behind a sleep of the card, tools/timing.py) and the
+   host's µs to enqueue one call; each of K4's three paths forced in turn
+   at a shape of short runs and one of long runs, where it can take it, and
+   its SiLU on each path within one bf16 ulp of the plain version's at
+   normalised values in [-10, 0];
    then each kernel under autograd at a shape of the training step: its
    output against the plain version's, and its gradient through the wrapper
    against the gradient through the function it recomputes with alone;
@@ -26,16 +32,19 @@ eight hand-written CUDA kernels:
    that still routes the kernels (head dim 64, 1024 latent tokens), in bf16
    on the card against the same weights and draws in f32 on the CPU;
 5. step: one full-width ControlNet+UNet denoise step with all default
-   kernels, with each of K3, K4, K5, K8 switched off in turn, with K4 on its
-   split path only, with K6 (on by default) switched off, with K7 (off by
-   default) switched on, and with all plain;
-6. sampler: two Box2Video requests: 25 frames at 512x320, CFG 1 -> 3, 25
-   Euler steps, decode chunk 8, synthetic bbox frames;
+   kernels, with each of K3, K4, K5, K8 switched off in turn, with K4 forced
+   onto each of its paths in turn (where the path can take the shape), with
+   K6 (on by default) switched off, with K7 (off by default) switched on,
+   and with all plain;
+6. sampler: two timed Box2Video requests: 25 frames at 512x320, CFG 1 -> 3,
+   25 Euler steps, decode chunk 8, synthetic bbox frames; then a third,
+   untimed, under the shape hooks (below);
 7. overall: a two-stage request: five stage-1 candidates in one batch
    (30 steps, frames-major UNet), cleanup and IoU select on the card, then
    Box2Video on the winner (25 steps); once with K6 on (its default) and
-   once with K6 off, for its A/B. The result's keys, shapes and ranges
-   and every kernel's launch count are checked;
+   once with K6 off, for its A/B, then once more with K6 on, untimed, under
+   the shape hooks. The result's keys, shapes and ranges and every kernel's
+   launch count are checked;
 8. train: the ControlNet training step on one clip of 25 frames at 512x320
    ("seq" layout, block checkpointing, encode chunk 5, AdamW with a bf16
    first moment): a warm-up micro-step, two optimizer updates at
@@ -58,6 +67,11 @@ prints one step's device time by kind of kernel (torch.profiler; the tables
 by kernel go to DIR, by default output/), with K7 off and on in turns, then
 K6 off and on.
 
+Forward hooks on every GroupNorm and LayerNorm count K4's and K5's launches
+by input shape on the four paths (an extra, untimed Box2Video request and
+overall request; the untimed warm-up ControlNet and stage-1 temporal
+micro-steps), printed as one table (``[shapes]``) before the end.
+
 Prints a JSON line of the kernels, then, as the last line,
 {"ok": true, "device": {...}}. A failed check exits non-zero before that
 line. Without a CUDA device, or without the repository beside it, the
@@ -66,6 +80,7 @@ script exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import json
 import os
@@ -101,6 +116,7 @@ from ctrlv_tpu_torch.pipelines import (  # noqa: E402
     StableVideoControlPipeline,
     VideoDiffusionPipeline,
 )
+from ctrlv_tpu_torch.tools.timing import device_ms  # noqa: E402
 from ctrlv_tpu_torch.train import (  # noqa: E402
     MultiSteps,
     init_train_state,
@@ -127,6 +143,9 @@ PEAK_BYTES, PEAK_BF16, PEAK_F32 = 3.35e12, 989e12, 67e12
 SMS = 132  # its streaming multiprocessors
 # kernels whose plain versions `[kernels]` times with fewer calls (K1, K6, K7)
 SLOW_PLAIN = ("mha", "geglu_ff", "resblock")
+# kernels (K2-K5) whose device time `[kernels]` reads apart from the host's, beside
+# their library calls': their calls are short enough for the host to hold the card back
+DEVICE_TIMED = ("small_mha", "small_mha_fm", "group_norm", "layer_norm")
 # |kernel - plain| <= KERNEL_TOL * (1 + |plain|) elementwise: the attention
 # kernels round P to bf16 at other places than their plain versions, the norm
 # kernels sum in another order, and the output itself is bf16 (ulp 2^-8 relative).
@@ -226,6 +245,20 @@ KERNEL_CASES = [
     ("group_norm", dict(shape=(250, 1280, 20, 32), act="silu"), True),
     ("group_norm", dict(shape=(250, 2560, 5, 8), act="silu"), True),
     ("group_norm", dict(shape=(10, 320, 25, 40, 64), act="silu"), True),
+    # The deeper levels, the most launched of K4's shapes (PERF.md, launches by shape):
+    # spatial at the Box2Video step's batch and stage 1's, temporal at their clips
+    ("group_norm", dict(shape=(50, 640, 20, 32), act="silu"), True),
+    ("group_norm", dict(shape=(50, 1280, 10, 16), act="silu"), True),
+    ("group_norm", dict(shape=(50, 1280, 5, 8), act="silu"), True),
+    ("group_norm", dict(shape=(250, 640, 20, 32), act="silu"), True),
+    ("group_norm", dict(shape=(250, 1280, 10, 16), act="silu"), True),
+    ("group_norm", dict(shape=(250, 1280, 5, 8), act="silu"), True),
+    ("group_norm", dict(shape=(2, 640, 25, 20, 32), act="silu"), True),
+    ("group_norm", dict(shape=(2, 1280, 25, 10, 16), act="silu"), True),
+    ("group_norm", dict(shape=(2, 1280, 25, 5, 8), act="silu"), True),
+    ("group_norm", dict(shape=(10, 640, 25, 20, 32), act="silu"), True),
+    ("group_norm", dict(shape=(10, 1280, 25, 10, 16), act="silu"), True),
+    ("group_norm", dict(shape=(10, 1280, 25, 5, 8), act="silu"), True),
     # The VAE at 512x320: the decoder takes all full chunks of a batch in one
     # call (24 frames of one clip, 120 of five), the encoder stage 1's 125
     # bbox frames; the decoder's temporal ResBlocks see clips of one chunk.
@@ -242,7 +275,10 @@ KERNEL_CASES = [
     ("layer_norm", dict(shape=(160000, 640)), True),
     ("layer_norm", dict(shape=(40000, 1280)), True),
     ("layer_norm", dict(shape=(10000, 1280)), True),  # mid block, 40 tokens a frame
+    ("layer_norm", dict(shape=(2000, 1280)), True),  # mid block of the Box2Video step
     ("layer_norm", dict(shape=(257, 1280)), False),  # CLIP's rows: an odd count
+    ("layer_norm", dict(shape=(999, 1288)), False),  # 32 lanes x 6 vectors, the last ragged
+    ("layer_norm", dict(shape=(3003, 72)), False),  # 2 lanes a row, 16 rows a warp
     # K6, rows x width (inner = 4 x width): the training micro-step (1 x 25
     # frames), the Box2Video step, stage 1; then the same with the LayerNorm in front.
     ("geglu_ff", dict(shape=(64000, 320)), True),
@@ -550,20 +586,47 @@ def compare(out, ref):
     return err, within
 
 
-def split_only(fn):
-    """``fn()`` while K4 sends every run down its split path, short ones too."""
-    keep = group_norm._SMEM_RUN_ELEMS
-    group_norm._SMEM_RUN_ELEMS = 0
+@contextlib.contextmanager
+def forced_k4_path(path: str):
+    """Inside this block K4 takes ``path`` wherever that path can take the
+    shape (``group_norm.plan_for``), and its own plan elsewhere."""
+    keep = group_norm._plan
+    group_norm._plan = lambda shape, groups: group_norm.plan_for(path, shape, groups) or keep(
+        shape, groups)
     try:
-        return fn()
+        yield
     finally:
-        group_norm._SMEM_RUN_ELEMS = keep
+        group_norm._plan = keep
+
+
+def describe_plan(kind: str, spec: dict) -> str:
+    """K4's or K5's plan at a case's shape, as the wrapper takes it."""
+    shape = spec["shape"]
+    if kind == "layer_norm":
+        rows = int(np.prod(shape[:-1]))
+        p = layer_norm._plan(rows, shape[-1])
+        return (f"plan: {p.lanes} lanes x {p.vecs} vectors a row, {p.rows_per_warp} rows a warp, "
+                f"{p.blocks} blocks of {layer_norm.WARPS} warps")
+    p = group_norm._plan(tuple(shape), spec.get("groups", 32))
+    return plan_text(p)
+
+
+PLAN_N = {"short": "runs an item", "cluster": "CTAs a cluster", "two_pass": "slices a run"}
+
+
+def plan_text(p) -> str:
+    text = (f"plan: path {p.path}, n {p.n} ({PLAN_N[p.path]}), stages {p.stages}, {p.blocks} blocks, {p.smem} bytes of shared memory a block, "
+            f"{p.ctas_per_sm} CTAs an SM, {p.waves:.2f} waves on {SMS} SMs")
+    if p.path == "cluster":
+        text += f", {group_norm.clusters_at_once(p)} clusters at once"
+    return text
 
 
 def phase_kernels() -> dict:
     """Each kernel against its plain version on the same inputs; the timed
     cases also beside the library call and the card's bound."""
-    keys = ("errs", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by")
+    keys = ("errs", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by", "device_ms",
+            "library_device_ms")
     results = {k: {key: [] for key in keys} for k in KERNELS}
     gen = torch.Generator(device=DEVICE).manual_seed(0)
     for kind, spec, timed in KERNEL_CASES:
@@ -595,6 +658,11 @@ def phase_kernels() -> dict:
                      f"{plan.blocks / SMS:.2f} waves on {SMS} SMs; equal_to_the_bit_twice={same}")
             if not same:
                 fail(f"{kind} at {spec}: two runs on the same inputs differ")
+        if kind in ("group_norm", "layer_norm"):
+            same = torch.equal(out, kern())
+            line += f" {describe_plan(kind, spec)}; equal_to_the_bit_twice={same}"
+            if not same:
+                fail(f"{kind} at {spec}: two runs on the same inputs differ")
         if kind == "resblock":
             plan = resblock._plan(*spec["shape"], spec.get("groups", 32), torch.bfloat16)
             same = torch.equal(out, kern())
@@ -620,21 +688,25 @@ def phase_kernels() -> dict:
             line += (f" kernel_ms={times['ms']:.4f} plain_ms={times['plain_ms']:.4f} "
                      f"library_ms={times['library_ms']:.4f} bound_ms={times['bound_ms']:.4f} "
                      f"(bytes {t_bytes:.4f}, operations {t_ops:.4f})")
+            if kind in DEVICE_TIMED:
+                dev, host, dev_note = device_within_wall(kern, times["ms"])
+                lib_dev, lib_host, lib_note = device_within_wall(lib, times["library_ms"])
+                res["device_ms"].append(dev)
+                res["library_device_ms"].append(lib_dev)
+                line += (f" kernel_device_ms={dev:.4f}{dev_note} library_device_ms="
+                         f"{lib_dev:.4f}{lib_note} host_us_per_call={host:.1f} "
+                         f"library_host_us_per_call={lib_host:.1f} "
+                         f"share_of_bound_on_device={100 * times['bound_ms'] / dev:.1f}%")
             if kind in ("geglu_ff", "resblock"):
                 line += f" share_of_bf16_peak={100 * t_ops / times['ms']:.1f}%"
-            if (kind == "group_norm"
-                    and out[0].numel() // spec.get("groups", 32) <= group_norm._SMEM_RUN_ELEMS):
-                # A run short enough for the one-block path: the split path beside it.
-                err_split, ok = compare(split_only(kern), ref)
-                within = within and ok
-                line += (f" split_path_ms={split_only(lambda: cuda_time_ms(kern, inner=8)):.4f} "
-                         f"(max_abs_err {err_split:.3e})")
         print(line, flush=True)
         res["errs"].append(err)
         if not (bool(torch.isfinite(out).all()) and within):
             fail(f"{kind} at {spec} disagrees with its plain version: {err}")
         del out, ref, kern, plain, lib
     torch.cuda.empty_cache()
+    k4_forced_paths(gen)
+    k4_silu_ulps(gen)
     # A width the gate refuses takes the unfused path in the model; forced, it raises.
     c, inner = 1280, 5120
     if geglu_ff._plan(4000, c, inner, c, torch.bfloat16) is not None:
@@ -663,6 +735,90 @@ def phase_kernels() -> dict:
         else:
             fail("K7 did not raise on a shape its gate refuses")
     return results
+
+
+def device_within_wall(fn, wall_ms: float) -> tuple:
+    """``timing.device_ms`` of ``fn`` (ms, host µs) and a note. The wall
+    window of back-to-back calls holds their device work, so a device reading
+    more than 2 % above ``wall_ms`` is wrong: it is read again, and where it
+    stays above, the wall reading stands for it and the note says so."""
+    dev, host = device_ms(fn)
+    if dev > 1.02 * wall_ms:
+        dev, host = device_ms(fn)
+    if dev > 1.02 * wall_ms:
+        return wall_ms, host, f" (device read {dev:.4f} twice, above the wall: the wall stands)"
+    return dev, host, ""
+
+
+# K4's paths, each forced in turn at one shape of short runs and one of long runs
+FORCED_K4 = [dict(shape=(50, 320, 40, 64), act="silu"), dict(shape=(2, 320, 25, 40, 64), act="silu")]
+
+
+def k4_forced_paths(gen) -> None:
+    """Every path of K4's plan forced at a short-run and a long-run shape,
+    where it can take it: one launch, against the plain version, equal to
+    the bit twice, and its device time."""
+    for spec in FORCED_K4:
+        *_, (_, fn_plain, ops) = make_case("group_norm", spec, gen)
+        shape, groups = spec["shape"], spec.get("groups", 32)
+        ref = fn_plain(*ops)
+        for path in group_norm.PATHS:
+            plan = group_norm.plan_for(path, shape, groups)
+            if plan is None:
+                print(f"[kernels] group_norm {spec} forced to the {path} path: it cannot take "
+                      f"runs of {group_norm._dims(shape, groups)[1]} elements", flush=True)
+                continue
+            kern = lambda plan=plan: group_norm._group_norm_cuda(  # noqa: E731
+                *ops, groups, 1e-5, spec["act"], plan)
+            before = _launch.LAUNCHES["group_norm"]
+            out = kern()
+            torch.cuda.synchronize()
+            if _launch.LAUNCHES["group_norm"] != before + 1:
+                fail(f"group_norm forced to {path} at {spec} did not launch its kernel")
+            err, within = compare(out, ref)
+            same = torch.equal(out, kern())
+            dev, host = device_ms(kern)
+            print(f"[kernels] group_norm {spec} forced to the {path} path: max_abs_err={err:.3e} "
+                  f"tol={KERNEL_TOL}*(1+|plain|) within={within} equal_to_the_bit_twice={same} "
+                  f"kernel_device_ms={dev:.4f} host_us_per_call={host:.1f}; {plan_text(plan)}",
+                  flush=True)
+            if not (bool(torch.isfinite(out).all()) and within and same):
+                fail(f"group_norm forced to {path} at {spec} disagrees with its plain version")
+            del out
+        del ops, ref
+    torch.cuda.empty_cache()
+
+
+def bf16_ulps(a, b) -> int:
+    """The largest distance between two bf16 tensors in bf16 ulps."""
+    def ordered(t):
+        bits = t.contiguous().view(torch.int16).int()
+        return torch.where(bits < 0, -(bits & 0x7FFF), bits)
+    return int((ordered(a) - ordered(b)).abs().max())
+
+
+# K4's SiLU probe: gamma 0 and beta spread over [-10, 0] across 2560 channels
+# make each normalised value y = beta exactly, in the kernel and in the plain
+# version, so that the two differ by the SiLU and its rounding alone
+SILU_PROBE, SILU_ULPS = (2, 2560, 5, 8), 1
+
+
+def k4_silu_ulps(gen) -> None:
+    """K4's SiLU on every path within SILU_ULPS bf16 ulps of the plain
+    version's, at y in [-10, 0], where 1 + exp(-y) is large."""
+    x = torch.randn(SILU_PROBE, generator=gen, device=DEVICE).bfloat16()
+    w = torch.zeros(SILU_PROBE[1], device=DEVICE)
+    b = torch.linspace(-10.0, 0.0, SILU_PROBE[1], device=DEVICE)
+    ref = group_norm.group_norm_plain(x, w, b, 32, 1e-5, "silu")
+    for path in group_norm.PATHS:
+        plan = group_norm.plan_for(path, SILU_PROBE, 32)
+        out = group_norm._group_norm_cuda(x, w, b, 32, 1e-5, "silu", plan)
+        ulps = bf16_ulps(out, ref)
+        print(f"[kernels] group_norm SiLU at y in [-10, 0] over {SILU_PROBE[1]} channels "
+              f"{SILU_PROBE}, {path} path: {ulps} bf16 ulps from the plain version at most "
+              f"(limit {SILU_ULPS})", flush=True)
+        if ulps > SILU_ULPS:
+            fail(f"K4's SiLU on the {path} path is {ulps} bf16 ulps from the plain version")
 
 
 def weight_cache_case(gen) -> None:
@@ -877,6 +1033,10 @@ def make_step(models):
     return step, h, w
 
 
+# [step]'s variants that force K4's paths (each where it can take the shape)
+K4_FORCED = {"K4 short": "short", "K4 cluster": "cluster", "K4 two-pass": "two_pass"}
+
+
 @torch.no_grad()
 def phase_step(models) -> None:
     """One full-width ControlNet+UNet step: all default kernels' worth (the
@@ -888,8 +1048,9 @@ def phase_step(models) -> None:
 
     def run(variant: str, fn):
         """``fn`` under one variant's switches, which are put back after."""
-        if variant == "K4 split":
-            return split_only(lambda: run("all kernels", fn))
+        if variant.startswith("K4 ") and variant != "K4 off":
+            with forced_k4_path(K4_FORCED[variant]):
+                return run("all kernels", fn)
         set_temporal_layout(nets, "seq" if variant == "K3 off" else "frames_major")
         group_norm.set_fused_group_norm(variant != "K4 off")
         layer_norm.set_fused_layer_norm(variant != "K5 off")
@@ -909,7 +1070,7 @@ def phase_step(models) -> None:
             geglu_ff.set_fused_geglu_ff(True)
             resblock.set_fused_resblock(False)
 
-    variants = ("all kernels", "K3 off", "K4 off", "K4 split", "K5 off", "K8 off", "K6 off",
+    variants = ("all kernels", "K3 off", "K4 off", *K4_FORCED, "K5 off", "K8 off", "K6 off",
                 "K7 on", "all plain")
     _launch.reset_launch_counts()
     preds = {v: run(v, step) for v in ("all kernels", "all plain")}
@@ -1092,6 +1253,54 @@ def check_clip(name: str, out, shape) -> None:
         fail(f"{name}: shape {tuple(out.shape)}, finite {finite}, range [{lo}, {hi}]")
 
 
+# K4's and K5's launches by input shape on each path, a request or a micro-step
+LAUNCHES_BY_SHAPE: dict = {}
+NORM_KINDS = ((layers.GroupNorm, "group_norm"), (layers.LayerNorm, "layer_norm"))
+
+
+@contextlib.contextmanager
+def launches_by_shape(path: str, nets):
+    """Inside this block, forward hooks on every GroupNorm and LayerNorm of
+    ``nets`` add the launches of K4 and K5 in each call to its input shape
+    ((B, C, *spatial); (rows, C) for K5) into ``LAUNCHES_BY_SHAPE[path]``.
+    The hooks cost the host a Python call and a dict copy a norm: a run
+    under them is an extra one, never a timed one."""
+    counts, started, handles = {}, [], []
+
+    def pre(module, args):
+        started.append(dict(_launch.LAUNCHES))
+
+    def post(module, args, out):
+        kind = next(k for cls, k in NORM_KINDS if isinstance(module, cls))
+        n = _launch.LAUNCHES[kind] - started.pop()[kind]
+        if n:
+            x = args[0]
+            shape = tuple(x.shape) if kind == "group_norm" else (x.numel() // x.shape[-1],
+                                                                  x.shape[-1])
+            counts[(kind, shape)] = counts.get((kind, shape), 0) + n
+
+    for net in nets:
+        for m in net.modules():
+            if isinstance(m, tuple(cls for cls, _ in NORM_KINDS)):
+                handles += [m.register_forward_pre_hook(pre), m.register_forward_hook(post)]
+    try:
+        yield
+    finally:
+        for h in handles:
+            h.remove()
+        LAUNCHES_BY_SHAPE[path] = counts
+
+
+def print_launches_by_shape() -> None:
+    paths = list(LAUNCHES_BY_SHAPE)
+    keys = sorted({k for by in LAUNCHES_BY_SHAPE.values() for k in by})
+    print(f"[shapes] launches of K4 and K5 by input shape, a request (box2video, overall) or a "
+          f"micro-step (train, train_svd); columns: {', '.join(paths)}")
+    for kind, shape in keys:
+        print(f"[shapes] {kind} {shape}: " + ", ".join(
+            f"{LAUNCHES_BY_SHAPE[p].get((kind, shape), 0):g}" for p in paths), flush=True)
+
+
 def check_launches(name: str, counts: dict, expect: dict) -> None:
     if counts != expect:
         fail(f"{name} launched {counts}, expected {expect}")
@@ -1108,15 +1317,19 @@ def phase_sampler(models, card: str) -> dict:
          "ctrl": STAGE2_STEPS, "unet": STAGE2_STEPS},
         {"ctrl": ("small_mha", False), "unet": ("small_mha", False)},
     )
-    for seed in (1, 2):
+
+    def request(seed):
         image, cond = synthetic_request(seed)
+        return pipe(image, cond, generator=torch.Generator(device=DEVICE).manual_seed(seed),
+                    num_frames=FRAMES, num_inference_steps=STAGE2_STEPS, min_guidance_scale=1.0,
+                    max_guidance_scale=3.0, decode_chunk_size=CHUNK)
+
+    for seed in (1, 2):
         torch.cuda.reset_peak_memory_stats()
         torch.cuda.synchronize()
         _launch.reset_launch_counts()
         t0 = time.perf_counter()
-        out = pipe(image, cond, generator=torch.Generator(device=DEVICE).manual_seed(seed),
-                   num_frames=FRAMES, num_inference_steps=STAGE2_STEPS, min_guidance_scale=1.0,
-                   max_guidance_scale=3.0, decode_chunk_size=CHUNK)
+        out = request(seed)
         torch.cuda.synchronize()
         secs = time.perf_counter() - t0
         counts = dict(_launch.LAUNCHES)
@@ -1126,6 +1339,11 @@ def phase_sampler(models, card: str) -> dict:
               f"max_memory_allocated {peak:.2f} GiB, launches {counts}; card {card}", flush=True)
         check_clip("the Box2Video clip", out, (1, FRAMES, H, W, 3))
         check_launches("the Box2Video request", counts, expect)
+    # K4's and K5's launches by input shape: a third request, untimed, under the hooks
+    _launch.reset_launch_counts()
+    with launches_by_shape("box2video", models.values()):
+        check_clip("the Box2Video clip under the shape hooks", request(3), (1, FRAMES, H, W, 3))
+    check_launches("the Box2Video request under the shape hooks", dict(_launch.LAUNCHES), expect)
     return counts
 
 
@@ -1156,6 +1374,12 @@ def phase_overall(models, card: str) -> dict:
 
     pipe.bbox_pipeline = timed("stage1", bbox)
     pipe.ctrl_pipeline = timed("stage2", ctrl)
+
+    def request():
+        return pipe(image[0], cond[0], generator=torch.Generator(device=DEVICE).manual_seed(2),
+                    num_frames=FRAMES, stage1_steps=STAGE1_STEPS, stage2_steps=STAGE2_STEPS,
+                    decode_chunk_size=CHUNK, max_decode_frames=MAX_DECODE_FRAMES)
+
     results = {}
     for k6 in (True, False):
         geglu_ff.set_fused_geglu_ff(k6)
@@ -1164,9 +1388,7 @@ def phase_overall(models, card: str) -> dict:
         _launch.reset_launch_counts()
         t0 = time.perf_counter()
         try:
-            res = pipe(image[0], cond[0], generator=torch.Generator(device=DEVICE).manual_seed(2),
-                       num_frames=FRAMES, stage1_steps=STAGE1_STEPS, stage2_steps=STAGE2_STEPS,
-                       decode_chunk_size=CHUNK, max_decode_frames=MAX_DECODE_FRAMES)
+            res = request()
             torch.cuda.synchronize()
         finally:
             geglu_ff.set_fused_geglu_ff(True)
@@ -1205,6 +1427,12 @@ def phase_overall(models, card: str) -> dict:
         )
         check_launches(f"the overall request with {tag}", counts, expect)
         results[k6] = counts
+    # K4's and K5's launches by input shape: a third request (K6 on), untimed, under the hooks
+    _launch.reset_launch_counts()
+    with launches_by_shape("overall", models.values()):
+        request()
+    check_launches("the overall request under the shape hooks", dict(_launch.LAUNCHES),
+                   results[True])
     return results[True]
 
 
@@ -1438,9 +1666,10 @@ def phase_train(models, card: str) -> dict:
     frozen = {k: {n: p.detach().clone() for n, p in nets[k].state_dict().items()}
               for k in ("unet", "vae", "clip")}
     probe_state = init_train_state(ctrl, probe_tx)
-    _, metrics, secs, _ = micro_step(probe, probe_state, "K6 on")
-    print(f"[train] warm-up micro-step {secs:.3f} s, loss {check_metrics('warm-up', metrics)[0]:.4f}",
-          flush=True)
+    with launches_by_shape("train", nets.values()):  # K4's and K5's launches by input shape
+        _, metrics, secs, _ = micro_step(probe, probe_state, "K6 on")
+    print(f"[train] warm-up micro-step (under the shape hooks) {secs:.3f} s, loss "
+          f"{check_metrics('warm-up', metrics)[0]:.4f}", flush=True)
 
     # Two optimizer updates at accumulation 2, K6 on: the main path's run.
     # K6 takes the feed-forwards that want no gradient: those of the frozen
@@ -1524,8 +1753,9 @@ def phase_train_svd(models, card: str) -> dict:
     frozen = {k: {n: p.detach().clone() for n, p in nets[k].named_parameters()
                   if not (k == "unet" and temporal_blocks_predicate(n))}
               for k in nets}
-    _, metrics, secs, _ = micro_step(probe, probe_state, "K7 on")
-    print(f"[train_svd] warm-up micro-step {secs:.3f} s, loss "
+    with launches_by_shape("train_svd", nets.values()):  # K4's and K5's launches by input shape
+        _, metrics, secs, _ = micro_step(probe, probe_state, "K7 on")
+    print(f"[train_svd] warm-up micro-step (under the shape hooks) {secs:.3f} s, loss "
           f"{check_metrics('warm-up', metrics)[0]:.4f}", flush=True)
 
     # Two optimizer updates at accumulation 2, K7 on: the main path's run.
@@ -1627,7 +1857,7 @@ KERNEL_KINDS = (
     ("K7 (resblock.cu)", ("namespace)::conv_kernel", "namespace)::gn_sums_kernel",
                           "namespace)::relayout_kernel")),
     ("K4 (group_norm.cu)", ("namespace)::gn_",)),
-    ("K5 (layer_norm.cu)", ("namespace)::layer_norm_kernel",)),
+    ("K5 (layer_norm.cu)", ("namespace)::ln_",)),
     ("K6 (geglu_ff.cu)", ("geglu_ff_kernel",)),
     ("cuDNN NCHW<->NHWC transforms", ("nchwToNhwc", "nhwcToNchw")),
     ("convolutions (cuDNN)", ("cudnn", "implicit_gemm", "conv")),
@@ -1648,7 +1878,7 @@ def profile_step(models, card: str, out_dir: str) -> None:
 
     step, _, _ = make_step(models)
     set_temporal_layout((models["ctrl"], models["unet"]), "frames_major")
-    device_ms = {}
+    step_device_ms = {}
     os.makedirs(out_dir, exist_ok=True)
     for variant in ("K7 off", "K7 on", "K7 on", "K7 off", "K6 off", "K6 on", "K6 on", "K6 off"):
         resblock.set_fused_resblock(variant == "K7 on")
@@ -1674,7 +1904,7 @@ def profile_step(models, card: str, out_dir: str) -> None:
             n_kernels += evt.count
         if total <= 0:
             fail("the profiler recorded no device time")
-        device_ms.setdefault(variant, []).append(total / 1e3)
+        step_device_ms.setdefault(variant, []).append(total / 1e3)
         print(f"[profile] one step, all kernels, frames-major, {variant}: {ms:.1f} ms by CUDA "
               f"events; {n_kernels} device kernels, {total / 1e3:.1f} ms of device time; "
               f"card {card}")
@@ -1685,7 +1915,7 @@ def profile_step(models, card: str, out_dir: str) -> None:
             fh.write(prof.key_averages().table(sort_by="self_cuda_time_total", row_limit=80,
                                                max_name_column_width=90))
     print("[profile] device ms a step: " + "; ".join(
-        f"{v} {', '.join(f'{x:.1f}' for x in xs)}" for v, xs in device_ms.items()), flush=True)
+        f"{v} {', '.join(f'{x:.1f}' for x in xs)}" for v, xs in step_device_ms.items()), flush=True)
 
 
 def main() -> None:
@@ -1723,6 +1953,9 @@ def main() -> None:
             bound_by=by[0],  # of the first, largest shape
             library_ms=float(np.mean(res["library_ms"])),
         ))
+        if res["device_ms"]:  # K2-K5: the device time apart from the host's
+            rows[-1].update(device_ms=float(np.mean(res["device_ms"])),
+                            library_device_ms=float(np.mean(res["library_device_ms"])))
         # K1-K6 and K8 belong to the overall path, and all of them but K3 to the
         # Box2Video and training paths ("seq" layout); K7 to stage 1's training.
         on = {"box2video": kind not in ("small_mha_fm", "resblock"),
@@ -1731,6 +1964,7 @@ def main() -> None:
               "train_svd": kind != "small_mha_fm"}
         if any((paths[name][kind] > 0) != due for name, due in on.items()):
             fail(f"{kind} was not launched on its paths: {rows[-1]['launches_by_path']}")
+    print_launches_by_shape()
     print(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(card)  # name, power limit
     print(json.dumps({"kernels": rows}))

@@ -1,7 +1,9 @@
 // Hopper (sm_90a) building blocks of the warp-specialised kernels in mha.cu
-// (K1, K8), geglu_ff.cu (K6) and resblock.cu (K7), as inline PTX: mbarriers,
-// TMA tensor copies, the warpgroup products (wgmma) with their shared-memory
-// matrix descriptors, register fences, named barriers and setmaxnreg; and, on
+// (K1, K8), geglu_ff.cu (K6) and resblock.cu (K7), and of the norms in
+// group_norm.cu (K4) and layer_norm.cu (K5), as inline PTX: mbarriers, 1-D
+// bulk copies, cluster barriers and distributed shared memory, TMA tensor
+// copies, the warpgroup products (wgmma) with their shared-memory matrix
+// descriptors, register fences, named barriers and setmaxnreg; and, on
 // the host, the encoding of a TMA tensor map through cuTensorMapEncodeTiled as
 // cudaGetDriverEntryPoint hands it out (so the library needs no -lcuda).
 //
@@ -62,6 +64,51 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
         : "r"(addr), "r"(parity)
         : "memory");
   }
+}
+
+// ---- 1-D bulk copies and thread block clusters ----
+
+// `bytes` (a multiple of 16, both addresses 16-byte aligned) from device
+// memory into this CTA's shared memory; completion is counted in bytes on `bar`.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      ::"r"(smem_addr(dst)), "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+
+__device__ __forceinline__ uint32_t cluster_ctarank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
+__device__ __forceinline__ uint32_t cluster_nctarank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_nctarank;\n" : "=r"(r));
+  return r;
+}
+
+// Every thread of every CTA of the cluster arrives (its earlier writes
+// released to the cluster) ...
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+
+// ... and waits until all have arrived (their writes acquired).
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// The f32 at `p` in this CTA's shared memory, read from the shared memory of
+// CTA `rank` of the cluster (distributed shared memory).
+__device__ __forceinline__ float ld_cluster_f32(const float* p, uint32_t rank) {
+  uint32_t remote;
+  float v;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(remote) : "r"(smem_addr(p)), "r"(rank));
+  asm volatile("ld.shared::cluster.f32 %0, [%1];\n" : "=f"(v) : "r"(remote) : "memory");
+  return v;
 }
 
 // ---- TMA ----

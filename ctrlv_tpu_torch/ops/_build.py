@@ -36,7 +36,8 @@ NVCC_FLAGS = (
 LIB_NAME = "libctrlv_kernels.so"
 
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
-# C entry points, each (tensors..., shape ints..., scalar, stream) -> cudaError_t
+# C entry points, each returning a cudaError_t: the kernels' (tensors..., shape ints...,
+# scalar, stream), and one query of the card
 _SIGNATURES = {
     # q, k, v, out, batch, sq, sk, heads, head_dim, scale
     "ctrlv_mha_fwd": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P),
@@ -45,11 +46,13 @@ _SIGNATURES = {
     "ctrlv_small_mha_fwd": (_P, _P, _P, _P, _I, _I, _I, _I, _F, _P),
     # q, k, v, out, batch, frames, s, heads, head_dim, scale
     "ctrlv_small_mha_fm_fwd": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P),
-    # x, gamma, beta, out, scratch, runs, run, spatial, channels per group, groups, splits,
-    # params are bf16, silu, eps
-    "ctrlv_group_norm_fwd": (_P, _P, _P, _P, _P, _L, _L, _L, _I, _I, _I, _I, _I, _F, _P),
-    # x, gamma, beta, out, rows, width, params are bf16, eps
-    "ctrlv_layer_norm_fwd": (_P, _P, _P, _P, _I, _I, _I, _F, _P),
+    # x, gamma, beta, out, scratch, runs, run, spatial, channels per group, groups, then the
+    # plan: path, n, stages, blocks, shared memory; params are bf16, silu, eps
+    "ctrlv_group_norm_fwd": (*(_P,) * 5, _L, _L, _L, *(_I,) * 9, _F, _P),
+    # cluster size, shared memory, out: clusters the card holds at once (no stream)
+    "ctrlv_group_norm_clusters": (_I, _I, _P),
+    # x, gamma, beta, out, rows, width, params are bf16, eps, blocks
+    "ctrlv_layer_norm_fwd": (_P, _P, _P, _P, _I, _I, _I, _F, _I, _P),
     # x, w1, b1, w2, b2, y, rows, width, inner
     "ctrlv_geglu_ff_fwd": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
     # x, gamma, beta, w1, b1, w2, b2, y, rows, width, inner, eps

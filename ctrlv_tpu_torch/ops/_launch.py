@@ -22,6 +22,8 @@ import contextlib
 
 import torch
 
+from . import _build
+
 LAUNCHES = {
     "mha": 0, "small_mha": 0, "small_mha_fm": 0, "flash": 0, "group_norm": 0, "layer_norm": 0,
     "geglu_ff": 0, "resblock": 0,
@@ -75,16 +77,35 @@ def check_tma_operands(name: str, row_elems: int, *tensors) -> None:
                              f"a multiple of 16")
 
 
+_resolved: tuple = (None, {})  # the library in use and its C functions by name
+
+
+def c_function(fn_name: str):
+    """The C entry point ``fn_name`` of the kernel library in use (built at
+    first use), resolved once per library."""
+    global _resolved
+    lib = _build._lib or _build.load()
+    if _resolved[0] is not lib:
+        _resolved = (lib, {})
+    fns = _resolved[1]
+    fn = fns.get(fn_name)
+    if fn is None:
+        fn = fns[fn_name] = getattr(lib, fn_name)
+    return fn
+
+
 def launch(name: str, fn_name: str, device, *args, count: bool = True) -> None:
     """Call the C entry point ``fn_name(*args, stream)`` on ``device``'s
     current stream; raise on a cudaError, else count one launch of ``name``
-    (``count=False``: a helper of the kernel, such as a weight re-layout)."""
-    from ._build import load
-
-    lib = load()
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        rc = getattr(lib, fn_name)(*args, stream)
+    (``count=False``: a helper of the kernel, such as a weight re-layout).
+    The device is made current only where it is not already."""
+    fn = c_function(fn_name)
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    if index == torch.cuda.current_device():
+        rc = fn(*args, torch._C._cuda_getCurrentRawStream(index))
+    else:
+        with torch.cuda.device(index):
+            rc = fn(*args, torch._C._cuda_getCurrentRawStream(index))
     if rc != 0:
         raise RuntimeError(f"{name}: kernel launch failed with cudaError {rc}")
     if count:

@@ -209,6 +209,78 @@ def test_group_norm_kernel_ragged_and_long_runs(cuda, shape, groups):
     assert_close(out, group_norm.group_norm_plain(x, w, b, groups, 1e-6, "silu"))
 
 
+@pytest.mark.parametrize("path", ["short", "cluster", "two_pass"])
+@pytest.mark.parametrize(
+    "shape,groups",
+    [
+        ((3, 320, 40, 64), 32),  # short runs of 25 600 elements
+        ((5, 2560, 5, 8), 32),  # runs of 3 200, several an item
+        ((1, 320, 25, 40, 64), 32),  # a temporal ResBlock's runs of 640 000
+        ((2, 64, 24, 8), 2),  # 32 channels a group
+    ],
+    ids=str,
+)
+def test_group_norm_forced_paths_match_plain_and_repeat(cuda, shape, groups, path):
+    """Each path of K4's plan, forced where it can take the shape: one launch,
+    the plain version's values, and the same bits twice."""
+    plan = group_norm.plan_for(path, shape, groups)
+    if plan is None:
+        assert path == "short" and group_norm._dims(shape, groups)[1] > 100_000
+        return
+    gen = torch.Generator(device=cuda).manual_seed(len(shape) + groups)
+    x = (1.5 * torch.randn(shape, generator=gen, device=cuda) + 0.3).bfloat16()
+    w, b = _affine(shape[1], cuda, torch.bfloat16)
+    before = _launch.LAUNCHES["group_norm"]
+    out = group_norm._group_norm_cuda(x, w, b, groups, 1e-5, "silu", plan)
+    again = group_norm._group_norm_cuda(x, w, b, groups, 1e-5, "silu", plan)
+    torch.cuda.synchronize()
+    assert _launch.LAUNCHES["group_norm"] == before + 2
+    assert torch.equal(out, again)
+    assert_close(out, group_norm.group_norm_plain(x, w, b, groups, 1e-5, "silu"))
+
+
+def _bf16_ulps(a, b):
+    """The largest distance between two bf16 tensors in bf16 ulps."""
+    def ordered(t):
+        bits = t.contiguous().view(torch.int16).int()
+        return torch.where(bits < 0, -(bits & 0x7FFF), bits)
+    return int((ordered(a) - ordered(b)).abs().max())
+
+
+@pytest.mark.parametrize("path", ["short", "cluster", "two_pass"])
+@pytest.mark.parametrize("shape", [(2, 2560, 5, 8), (1, 2560, 25, 16, 16)], ids=str)
+def test_group_norm_silu_within_one_bf16_ulp(cuda, shape, path):
+    """K4's SiLU at normalised values y in [-10, 0], where 1 + exp(-y) is
+    large: gamma 0 and beta spread over the channels make y = beta exactly in
+    the kernel and in the plain version, so the two may differ by the SiLU's
+    rounding alone, one bf16 ulp at most."""
+    plan = group_norm.plan_for(path, shape, 32)
+    if plan is None:
+        assert path == "short" and group_norm._dims(shape, 32)[1] > 100_000
+        return
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    x = torch.randn(shape, generator=gen, device=cuda).bfloat16()
+    w = torch.zeros(shape[1], device=cuda)
+    b = torch.linspace(-10.0, 0.0, shape[1], device=cuda)
+    out = group_norm._group_norm_cuda(x, w, b, 32, 1e-5, "silu", plan)
+    ref = group_norm.group_norm_plain(x, w, b, 32, 1e-5, "silu")
+    assert _bf16_ulps(out, ref) <= 1
+
+
+@pytest.mark.parametrize("c", [8, 72, 200, 320, 640, 1280, 1288, 2048])  # 1 to 32 lanes a row
+@pytest.mark.parametrize("rows", [1, 257, 3003])
+def test_layer_norm_lane_splits_repeat(cuda, c, rows):
+    """K5 at every split of a row over lanes: the plain version's values, the
+    same bits twice."""
+    gen = torch.Generator(device=cuda).manual_seed(c + rows)
+    x = (2.0 * torch.randn((rows, c), generator=gen, device=cuda) - 0.5).bfloat16()
+    w, b = _affine(c, cuda, torch.bfloat16)
+    out, again = layer_norm.layer_norm(x, w, b, 1e-5), layer_norm.layer_norm(x, w, b, 1e-5)
+    torch.cuda.synchronize()
+    assert torch.equal(out, again)
+    assert_close(out, layer_norm.layer_norm_plain(x, w, b, 1e-5))
+
+
 @pytest.mark.parametrize("c", [320, 640, 1280, 2048, 8])
 @pytest.mark.parametrize("rows", [(257,), (3, 1001)])
 @pytest.mark.parametrize("pdtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
