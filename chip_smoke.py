@@ -2,9 +2,9 @@
 
     python3 chip_smoke.py
 
-Drives the port's two serving paths and its ControlNet and stage-1 training
-steps at the full SVD-XT width with seeded random bf16 weights, through its
-eight hand-written CUDA kernels:
+Drives the port's two serving paths, its ControlNet and stage-1 training
+steps and its overall-eval entry point at the full SVD-XT width with seeded
+random bf16 weights, through its eight hand-written CUDA kernels:
 
 1. device: the card's name and power limit, torch and CUDA versions, the
    TF32 switches;
@@ -60,7 +60,18 @@ eight hand-written CUDA kernels:
    on, then one micro-step each with K7 on, K7 off and all plain; the same
    checks, and that nothing outside the subset moved or asked for a gradient.
    Then one full-finetune update at accumulation 2, for its peak memory, and
-   one VAE-decoder step on 8 frames.
+   one VAE-decoder step on 8 frames;
+10. eval: the overall-eval entry point (ctrlv_tpu_torch.tools.eval_overall),
+   once the models above are freed: seeded random bf16 UNet-ST, VAE and CLIP
+   written as a diffusers directory by the port's save_pipeline (GB and
+   seconds printed), built from it by the tool's build_models (strict; every
+   loaded tensor equal to the written one bit for bit), then the tool's loop
+   over two synthetic clips (25 frames at 512x320) from get_dataloader with
+   two worker processes, 30 + 25 steps, decode chunk 8, its GIFs exported
+   where PIL imports. Each request's seconds, loader wait, export seconds,
+   scores and peak memory are printed; its outputs and scores are checked, and its launches
+   must be [overall]'s with K3's taken by K2 (one "seq" UNet serves both
+   stages, as in the JAX tool).
 
 ``python3 chip_smoke.py --profile [DIR]`` instead builds the models and
 prints one step's device time by kind of kernel (torch.profiler; the tables
@@ -85,8 +96,10 @@ import copy
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -95,6 +108,7 @@ import torch.nn.functional as F
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
+from ctrlv_tpu_torch.data import get_dataloader  # noqa: E402
 from ctrlv_tpu_torch.models import (  # noqa: E402
     AutoencoderKLTemporalDecoder,
     CLIPVisionConfig,
@@ -116,6 +130,8 @@ from ctrlv_tpu_torch.pipelines import (  # noqa: E402
     StableVideoControlPipeline,
     VideoDiffusionPipeline,
 )
+from ctrlv_tpu_torch.tools import common as tool_common  # noqa: E402
+from ctrlv_tpu_torch.tools import eval_overall  # noqa: E402
 from ctrlv_tpu_torch.tools.timing import device_ms  # noqa: E402
 from ctrlv_tpu_torch.train import (  # noqa: E402
     MultiSteps,
@@ -124,10 +140,12 @@ from ctrlv_tpu_torch.train import (  # noqa: E402
     make_optimizer,
     make_svd_train_step,
     make_vae_decoder_train_step,
+    save_pipeline,
     split_trainable,
     temporal_blocks_predicate,
     vae_decoder_predicate,
 )
+from ctrlv_tpu_torch.utils.config import Config  # noqa: E402
 
 H, W, FRAMES, CHUNK = 320, 512, 25, 8
 STAGE1_STEPS, STAGE2_STEPS = 30, 25
@@ -1849,6 +1867,138 @@ def phase_train_svd(models, card: str) -> dict:
     return path_counts
 
 
+# The eval entry point: synthetic requests answered, loader worker processes
+EVAL_SAMPLES, EVAL_WORKERS = 2, 2
+BUILD_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
+
+
+def eval_expected_launches(overall: dict) -> dict:
+    """A request of the eval tool launches what an ``[overall]`` request does,
+    but its one UNet ("seq") takes stage 1's temporal attention to K2 where
+    ``[overall]``'s frames-major stage-1 UNet takes it to K3."""
+    exp = dict(overall)
+    exp["small_mha"] += exp["small_mha_fm"]
+    exp["small_mha_fm"] = 0
+    return exp
+
+
+def phase_eval(card: str, overall: dict) -> dict:
+    """The overall-eval entry point (``ctrlv_tpu_torch.tools.eval_overall``) at
+    full width: seeded random bf16 UNet-ST, VAE and CLIP written as a diffusers
+    directory with the port's ``save_pipeline``; the models built from it by
+    the tool's ``build_models`` (strict, every tensor checked against the one
+    written, bit for bit); then the tool's loop over two synthetic clips of 25
+    frames at 512x320 from ``get_dataloader`` with two worker processes, with
+    the JAX tool's defaults (30 + 25 steps, decode chunk 8). Each request's
+    output, scores and launches are checked; its launches are ``[overall]``'s
+    with K3's taken by K2. Returns the launches of the whole loop."""
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    ckpt = tempfile.mkdtemp(prefix="eval_checkpoint_", dir=BUILD_DIR)
+    try:
+        with torch.device(DEVICE):
+            written = {"unet": UNetSpatioTemporalConditionModel(UNET_CONFIG),
+                       "vae": AutoencoderKLTemporalDecoder(VAE_CONFIG),
+                       "clip": CLIPVisionModelWithProjection(CLIP_CONFIG)}
+        for seed, (key, m) in enumerate(written.items(), start=200):
+            init_random_(m, seed)
+            written[key] = m.to(torch.bfloat16).eval()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        save_pipeline(ckpt, unet=written["unet"], vae=written["vae"],
+                      image_encoder=written["clip"])
+        write_s = time.perf_counter() - t0
+        gb = sum(os.path.getsize(os.path.join(d, f))
+                 for d, _, files in os.walk(ckpt) for f in files) / 1e9
+
+        cfg = Config(dataset_name="synthetic", data_root=ckpt, clip_length=FRAMES, train_H=H,
+                     train_W=W, pretrained_model_name_or_path=ckpt, device=DEVICE,
+                     dataloader_num_workers=EVAL_WORKERS, num_inference_steps=STAGE2_STEPS,
+                     decode_chunk_size=CHUNK, num_demo_samples=EVAL_SAMPLES,
+                     output_dir=os.path.join(ckpt, "out"), seed=5)
+        t0 = time.perf_counter()
+        models = tool_common.build_models(cfg, tiny=False, with_controlnet=True)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        print(f"[eval] checkpoint {gb:.3f} GB (UNet-ST, VAE, CLIP ViT-H in bf16): written in "
+              f"{write_s:.3f} s ({gb / write_s:.2f} GB/s), built and loaded by build_models "
+              f"in {load_s:.3f} s ({gb / load_s:.2f} GB/s); card {card}", flush=True)
+        n_tensors = 0
+        for key, src in written.items():
+            got = models[key].state_dict()
+            for name, t in src.state_dict().items():
+                if got[name].dtype != t.dtype or not torch.equal(got[name], t):
+                    fail(f"the loaded {key} differs from the written one at {name}")
+                n_tensors += 1
+        print(f"[eval] {n_tensors} loaded tensors equal the written ones bit for bit", flush=True)
+        del written
+        torch.cuda.empty_cache()
+
+        try:
+            import PIL  # noqa: F401
+            export = True
+        except ImportError:
+            export = False
+            print("[eval] PIL cannot be imported here: the videos are not exported", flush=True)
+        _, loader = get_dataloader(
+            cfg.data_root, cfg.dataset_name, if_train=False, batch_size=1,
+            num_workers=cfg.dataloader_num_workers, clip_length=FRAMES, shuffle=False,
+            if_return_bbox_im=True, train_H=H, train_W=W, pin_memory=True)
+        pipe = eval_overall.make_pipeline(models)
+        expect = eval_expected_launches(overall)
+        per_request = []
+
+        class Checked:
+            """The pipeline, with each request's output, peak memory and
+            launches read around it."""
+            device = pipe.device
+
+            def __call__(self, *args, **kwargs):
+                torch.cuda.reset_peak_memory_stats()
+                before = dict(_launch.LAUNCHES)
+                res = pipe(*args, **kwargs)
+                torch.cuda.synchronize()
+                launches = {k: _launch.LAUNCHES[k] - before[k] for k in before}
+                per_request.append((torch.cuda.max_memory_allocated() / 2**30, launches))
+                check_clip("the eval video", res["video"], (FRAMES, H, W, 3))
+                check_clip("the eval bbox video", res["bbox_video"], (FRAMES, H, W, 3))
+                scores = [res[k] for k in eval_overall.SCORES]
+                if not all(isinstance(x, float) and 0.0 <= x <= 1.0 for x in scores):
+                    fail(f"eval scores {scores}")
+                check_launches(f"eval request {len(per_request) - 1}", launches, expect)
+                return res
+
+        _launch.reset_launch_counts()
+        t0 = time.perf_counter()
+        summary, samples = eval_overall.evaluate(Checked(), loader, cfg,
+                                                 max_samples=EVAL_SAMPLES, export=export)
+        secs = time.perf_counter() - t0
+        counts = dict(_launch.LAUNCHES)
+        if len(samples) != EVAL_SAMPLES:
+            fail(f"the eval loop answered {len(samples)} requests")
+        for i, (sample, (peak, _)) in enumerate(zip(samples, per_request)):
+            print(f"[eval] request {i}: {sample['seconds']:.3f} s, loader wait "
+                  f"{sample['loader_wait_seconds']:.3f} s, export "
+                  f"{sample['export_seconds']:.3f} s, best_guidance "
+                  f"{sample['best_guidance']}, " + ", ".join(
+                      f"{k} {sample[k]:.4f}" for k in eval_overall.SCORES)
+                  + f"; max_memory_allocated {peak:.2f} GiB; card {card}", flush=True)
+        if export:
+            from ctrlv_tpu_torch.utils.video_io import load_video
+
+            for i in range(EVAL_SAMPLES):
+                for name in (f"generated_video_{i}.gif", f"predicted_bbox_{i}.gif"):
+                    video = load_video(os.path.join(cfg.output_dir, name))
+                    if video.shape[1:] != (H, W, 3):
+                        fail(f"{name} has shape {video.shape}")
+        print(f"[eval] {EVAL_SAMPLES} requests in {secs:.3f} s through {EVAL_WORKERS} loader "
+              f"workers, summary {summary}, exported {export}; launches {counts}", flush=True)
+        del models, pipe
+        torch.cuda.empty_cache()
+        return counts
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+
+
 # Kinds of device kernel by a word of the name torch.profiler reports; the
 # first kind with a match wins.
 KERNEL_KINDS = (
@@ -1939,6 +2089,9 @@ def main() -> None:
     del models["ctrl"]
     torch.cuda.empty_cache()
     paths["train_svd"] = phase_train_svd(models, card)
+    del models
+    torch.cuda.empty_cache()
+    paths["eval"] = phase_eval(card, paths["overall"])
 
     rows = []
     for kind, meta in KERNELS.items():
@@ -1957,9 +2110,10 @@ def main() -> None:
             rows[-1].update(device_ms=float(np.mean(res["device_ms"])),
                             library_device_ms=float(np.mean(res["library_device_ms"])))
         # K1-K6 and K8 belong to the overall path, and all of them but K3 to the
-        # Box2Video and training paths ("seq" layout); K7 to stage 1's training.
+        # Box2Video, eval and training paths ("seq" layout); K7 to stage 1's training.
         on = {"box2video": kind not in ("small_mha_fm", "resblock"),
               "overall": kind != "resblock",
+              "eval": kind not in ("small_mha_fm", "resblock"),
               "train": kind not in ("small_mha_fm", "resblock"),
               "train_svd": kind != "small_mha_fm"}
         if any((paths[name][kind] > 0) != due for name, due in on.items()):

@@ -1,6 +1,10 @@
 """ctrlv_tpu_torch: ctrlv_tpu in PyTorch, for one NVIDIA H100: the Box2Video
 sampler, the stage-1 bbox sampler, the two-stage overall pipeline that joins
-them, and the ControlNet (Box2Video) training step (``train``).
+them, the training steps (``train``), diffusers checkpoints in and out
+(``train.hf_import``, ``train.hf_export``; the safetensors format in
+``utils.safetensors_io``), the data path (``data``) and the evaluation
+tools (``python -m ctrlv_tpu_torch.tools.eval_overall``,
+``tools.eval_video_controlnet``).
 
 The JAX package ``ctrlv_tpu`` is the reference this port is held against;
 this package imports neither JAX nor flax. Its modules mirror that

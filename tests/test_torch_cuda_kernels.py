@@ -634,3 +634,25 @@ def test_wrapper_gradient_matches_plain_gradient(cuda, kind):
     out = fn(first, *ops[1:])
     out.backward(r)
     assert first.grad is not None and all(t.grad is None for t in ops[1:])
+
+
+def test_bf16_checkpoint_loads_straight_onto_the_card(cuda, tmp_path):
+    """A bf16 component written from the card reads back onto the card, by
+    file and into a module, equal to the source bit for bit."""
+    from ctrlv_tpu_torch.models import CLIPVisionConfig, CLIPVisionModelWithProjection
+    from ctrlv_tpu_torch.train.hf_export import save_pipeline
+    from ctrlv_tpu_torch.train.hf_import import load_hf_component, load_safetensors
+
+    torch.manual_seed(0)
+    src = CLIPVisionModelWithProjection(CLIPVisionConfig.tiny()).to(cuda, torch.bfloat16)
+    save_pipeline(str(tmp_path), image_encoder=src)
+    ref = src.state_dict()
+    got = load_safetensors(str(tmp_path / "image_encoder" / "model.safetensors"), device=cuda)
+    assert sorted(got) == sorted(ref)
+    for k, v in ref.items():
+        assert got[k].device.type == "cuda" and got[k].dtype == torch.bfloat16, k
+        assert torch.equal(got[k], v), k
+    dst = CLIPVisionModelWithProjection(CLIPVisionConfig.tiny()).to(cuda, torch.bfloat16)
+    assert load_hf_component(str(tmp_path / "image_encoder"), dst) == []
+    for k, v in dst.state_dict().items():
+        assert torch.equal(v, ref[k]), k

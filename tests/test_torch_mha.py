@@ -229,6 +229,8 @@ def test_gelu_routes_by_dtype():
 
 
 def test_import_leaves_jax_and_flax_out():
+    """No module of the port imports JAX, flax, optax, the JAX package or the
+    safetensors package."""
     code = (
         "import sys, ctrlv_tpu_torch, ctrlv_tpu_torch.models, ctrlv_tpu_torch.pipelines, "
         "ctrlv_tpu_torch.convert, ctrlv_tpu_torch.ops, ctrlv_tpu_torch.metrics.iou, "
@@ -240,9 +242,17 @@ def test_import_leaves_jax_and_flax_out():
         "ctrlv_tpu_torch.ops.geglu_ff, ctrlv_tpu_torch.train, ctrlv_tpu_torch.train.loss, "
         "ctrlv_tpu_torch.train.state, ctrlv_tpu_torch.train.train_step, "
         "ctrlv_tpu_torch.ops.resblock, ctrlv_tpu_torch.train.lora, ctrlv_tpu_torch.train.ema, "
-        "ctrlv_tpu_torch.tools.ab_mha; "
+        "ctrlv_tpu_torch.tools.ab_mha, ctrlv_tpu_torch.utils.safetensors_io, "
+        "ctrlv_tpu_torch.utils.config, ctrlv_tpu_torch.utils.video_io, "
+        "ctrlv_tpu_torch.train.hf_import, ctrlv_tpu_torch.train.hf_export, "
+        "ctrlv_tpu_torch.ops.rasterize, ctrlv_tpu_torch.data, ctrlv_tpu_torch.data.native, "
+        "ctrlv_tpu_torch.data.collate, ctrlv_tpu_torch.data.base, ctrlv_tpu_torch.data.synthetic, "
+        "ctrlv_tpu_torch.data.loader, ctrlv_tpu_torch.data.bdd100k, ctrlv_tpu_torch.data.kitti, "
+        "ctrlv_tpu_torch.data.vkitti, ctrlv_tpu_torch.data.mkitti, "
+        "ctrlv_tpu_torch.tools.common, ctrlv_tpu_torch.tools.eval_overall, "
+        "ctrlv_tpu_torch.tools.eval_video_controlnet, ctrlv_tpu_torch.metrics.image; "
         "bad = sorted(m for m in sys.modules "
-        "if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'optax', 'ctrlv_tpu')); "
+        "if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'optax', 'ctrlv_tpu', 'safetensors')); "
         "print(bad); sys.exit(1 if bad else 0)"
     )
     proc = subprocess.run(
