@@ -3,8 +3,9 @@
     python3 chip_smoke.py
 
 Drives the port's two serving paths, its ControlNet and stage-1 training
-steps and its overall-eval entry point at the full SVD-XT width with seeded
-random bf16 weights, through its eight hand-written CUDA kernels:
+steps, its overall-eval entry point and its three trainer entry points at the
+full SVD-XT width with seeded random bf16 weights, through its eight
+hand-written CUDA kernels:
 
 1. device: the card's name and power limit, torch and CUDA versions, the
    TF32 switches;
@@ -71,7 +72,25 @@ random bf16 weights, through its eight hand-written CUDA kernels:
    where PIL imports. Each request's seconds, loader wait, export seconds,
    scores and peak memory are printed; its outputs and scores are checked, and its launches
    must be [overall]'s with K3's taken by K2 (one "seq" UNet serves both
-   stages, as in the JAX tool).
+   stages, as in the JAX tool);
+11. train_cli: the three trainer entry points (ctrlv_tpu_torch.tools.train_*)
+   through each tool's own train(cfg, models, loader), on models its
+   build_models loads from a seeded random bf16 checkpoint, under f32 master
+   weights, on synthetic clips of 25 frames at 512x320 ("seq" layout, block
+   checkpointing, encode chunk 5, AdamW with a bf16 first moment at lr 1e-5):
+   the ControlNet trainer at accumulation 2 for 4 micro-steps, with a
+   training-state checkpoint at micro-step 2 and at the end and one
+   validation on one demo sample (5 Euler steps, not 25), then resumed from
+   the latest checkpoint by a second run from fresh models for 2 more (the
+   restored state must equal the saved one bit for bit), its f32 export built
+   back strictly and equal to the masters bit for bit; the stage-1 trainer
+   (the bbox predictor, full finetune, EMA) for two updates at accumulation 2;
+   the VAE trainer for one step on 8 frames. Each micro-step's launches must
+   be a [train] micro-step's (ControlNet) or the count predicted from the
+   module counts (stage 1), the validation's those of a sampler of 5 steps;
+   s/micro-step, s/update, the checkpoint's GB with its write and restore
+   GB/s, peak memory and how many trained tensors moved in master and in bf16
+   at each update are printed.
 
 ``python3 chip_smoke.py --profile [DIR]`` instead builds the models and
 prints one step's device time by kind of kernel (torch.profiler; the tables
@@ -93,6 +112,7 @@ from __future__ import annotations
 
 import contextlib
 import copy
+import dataclasses
 import json
 import os
 import re
@@ -131,11 +151,16 @@ from ctrlv_tpu_torch.pipelines import (  # noqa: E402
     VideoDiffusionPipeline,
 )
 from ctrlv_tpu_torch.tools import common as tool_common  # noqa: E402
-from ctrlv_tpu_torch.tools import eval_overall  # noqa: E402
+from ctrlv_tpu_torch.tools import (  # noqa: E402
+    eval_overall, train_vae_finetuning, train_video_controlnet, train_video_diffusion,
+)
 from ctrlv_tpu_torch.tools.timing import device_ms  # noqa: E402
 from ctrlv_tpu_torch.train import (  # noqa: E402
+    CheckpointManager,
+    MasterWeights,
     MultiSteps,
     init_train_state,
+    load_hf_component,
     make_controlnet_train_step,
     make_optimizer,
     make_svd_train_step,
@@ -146,6 +171,7 @@ from ctrlv_tpu_torch.train import (  # noqa: E402
     vae_decoder_predicate,
 )
 from ctrlv_tpu_torch.utils.config import Config  # noqa: E402
+from ctrlv_tpu_torch.utils.safetensors_io import iter_tensors  # noqa: E402
 
 H, W, FRAMES, CHUNK = 320, 512, 25, 8
 STAGE1_STEPS, STAGE2_STEPS = 30, 25
@@ -1882,6 +1908,28 @@ def eval_expected_launches(overall: dict) -> dict:
     return exp
 
 
+def dir_gb(path: str) -> float:
+    return sum(os.path.getsize(os.path.join(d, f)) for d, _, files in os.walk(path)
+               for f in files) / 1e9
+
+
+def write_random_checkpoint(ckpt: str):
+    """Seeded random bf16 UNet-ST, VAE and CLIP written as a diffusers
+    directory by the port's ``save_pipeline``; returns (the modules, GB,
+    seconds to write)."""
+    with torch.device(DEVICE):
+        written = {"unet": UNetSpatioTemporalConditionModel(UNET_CONFIG),
+                   "vae": AutoencoderKLTemporalDecoder(VAE_CONFIG),
+                   "clip": CLIPVisionModelWithProjection(CLIP_CONFIG)}
+    for seed, (key, m) in enumerate(written.items(), start=200):
+        init_random_(m, seed)
+        written[key] = m.to(torch.bfloat16).eval()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    save_pipeline(ckpt, unet=written["unet"], vae=written["vae"], image_encoder=written["clip"])
+    return written, dir_gb(ckpt), time.perf_counter() - t0
+
+
 def phase_eval(card: str, overall: dict) -> dict:
     """The overall-eval entry point (``ctrlv_tpu_torch.tools.eval_overall``) at
     full width: seeded random bf16 UNet-ST, VAE and CLIP written as a diffusers
@@ -1895,21 +1943,7 @@ def phase_eval(card: str, overall: dict) -> dict:
     os.makedirs(BUILD_DIR, exist_ok=True)
     ckpt = tempfile.mkdtemp(prefix="eval_checkpoint_", dir=BUILD_DIR)
     try:
-        with torch.device(DEVICE):
-            written = {"unet": UNetSpatioTemporalConditionModel(UNET_CONFIG),
-                       "vae": AutoencoderKLTemporalDecoder(VAE_CONFIG),
-                       "clip": CLIPVisionModelWithProjection(CLIP_CONFIG)}
-        for seed, (key, m) in enumerate(written.items(), start=200):
-            init_random_(m, seed)
-            written[key] = m.to(torch.bfloat16).eval()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        save_pipeline(ckpt, unet=written["unet"], vae=written["vae"],
-                      image_encoder=written["clip"])
-        write_s = time.perf_counter() - t0
-        gb = sum(os.path.getsize(os.path.join(d, f))
-                 for d, _, files in os.walk(ckpt) for f in files) / 1e9
-
+        written, gb, write_s = write_random_checkpoint(ckpt)
         cfg = Config(dataset_name="synthetic", data_root=ckpt, clip_length=FRAMES, train_H=H,
                      train_W=W, pretrained_model_name_or_path=ckpt, device=DEVICE,
                      dataloader_num_workers=EVAL_WORKERS, num_inference_steps=STAGE2_STEPS,
@@ -1997,6 +2031,404 @@ def phase_eval(card: str, overall: dict) -> dict:
         return counts
     finally:
         shutil.rmtree(ckpt, ignore_errors=True)
+
+
+# [train_cli]: micro-steps of the ControlNet trainer's first run (a
+# checkpoint at CLI_CKPT) and of its resumed run, Euler steps of its one
+# validation (at micro-step CLI_VAL; the tool's default is 25 steps), frames of
+# the VAE trainer's one step (its decoder is not checkpointed)
+CLI_STEPS, CLI_CKPT, CLI_VAL, CLI_RESUMED, CLI_VAL_STEPS, CLI_VAE_FRAMES = 4, 2, 3, 2, 5, CHUNK
+
+
+def fingerprint(t: torch.Tensor) -> tuple:
+    """Two sums over a tensor's bits, the second weighted by position: an
+    element that changes changes them but for a vanishing share of changes."""
+    bits = t.detach().reshape(-1).view({torch.float32: torch.int32,
+                                        torch.bfloat16: torch.int16}[t.dtype]).long()
+    weight = torch.arange(bits.numel(), device=t.device) % 65521 + 1
+    return int(bits.sum()), int((bits * weight).sum())
+
+
+class StepProbe:
+    """Patched in place of a trainer tool's step factory: each micro-step's
+    seconds and launches (synchronised around it), the optimizer update's
+    seconds, and after each update how many trained tensors moved in master
+    and in bf16. On its first micro-step each module tensor must be its
+    master rounded."""
+
+    def __init__(self, factory):
+        self.factory, self.steps = factory, []
+
+    def __call__(self, *args, **kwargs):
+        tx = next(a for a in args if isinstance(a, MasterWeights))
+        chain = tx.inner.inner if isinstance(tx.inner, MultiSteps) else tx.inner
+        inner_update, update_secs = chain.update, []
+
+        def timed_update(*a):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = inner_update(*a)
+            torch.cuda.synchronize()
+            update_secs.append(time.perf_counter() - t0)
+            return out
+
+        chain.update = timed_update
+        step, prints = self.factory(*args, **kwargs), {}
+
+        def take(state):
+            prints["master"] = {k: fingerprint(m) for k, m in state.opt_state["master"].items()}
+            prints["bf16"] = {k: fingerprint(p) for k, p in state.params.items()}
+
+        def probed(state, *a, **k):
+            if not prints:
+                bad = [n for n, p in state.params.items()
+                       if not torch.equal(p, state.opt_state["master"][n].to(p.dtype))]
+                if bad:
+                    fail(f"module tensors that are not their masters rounded: {bad[:3]}")
+                take(state)
+            n_updates = len(update_secs)
+            torch.cuda.synchronize()
+            before = dict(_launch.LAUNCHES)
+            t0 = time.perf_counter()
+            state, metrics = step(state, *a, **k)
+            torch.cuda.synchronize()
+            rec = dict(secs=time.perf_counter() - t0, loss=metrics["loss"].item(),
+                       launches={n: _launch.LAUNCHES[n] - before[n] for n in before})
+            if len(update_secs) > n_updates:
+                old = dict(prints)
+                take(state)
+                rec.update(update_secs=update_secs[-1], of=len(prints["master"]), **{
+                    f"moved_{kind}": sum(prints[kind][n] != old[kind][n] for n in old[kind])
+                    for kind in ("master", "bf16")})
+            self.steps.append(rec)
+            return state, metrics
+
+        return probed
+
+
+class TimedCheckpoints(CheckpointManager):
+    """The trainers' ``CheckpointManager`` with each save's call (the host
+    copy, and the write where it waits), each write in its thread and each
+    restore timed; ``on_restore`` sees each restored tree."""
+    records: list = []
+    on_restore = None
+
+    def save(self, step, tree, wait=False):
+        t0 = time.perf_counter()
+        saved = super().save(step, tree, wait=wait)
+        if saved:
+            self.records.append(("save", step, time.perf_counter() - t0))
+        return saved
+
+    def _write(self, step, skeleton, tensors):
+        t0 = time.perf_counter()
+        super()._write(step, skeleton, tensors)
+        nbytes = sum(t.numel() * t.element_size() for t in tensors.values())
+        self.records.append(("write", step, time.perf_counter() - t0, nbytes / 1e9))
+
+    def restore(self, step=None, template=None):
+        t0 = time.perf_counter()
+        tree = super().restore(step, template)
+        self.records.append(("restore", self.latest_step() if step is None else step,
+                             time.perf_counter() - t0))
+        if tree is not None and TimedCheckpoints.on_restore is not None:
+            TimedCheckpoints.on_restore(tree)
+        return tree
+
+
+@contextlib.contextmanager
+def patched(module, **attrs):
+    saved = {k: getattr(module, k) for k in attrs}
+    for k, v in attrs.items():
+        setattr(module, k, v)
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            setattr(module, k, v)
+
+
+def assert_trees_equal(got, want, path: str = "") -> int:
+    """Two checkpoint trees equal to the bit; returns the tensors compared."""
+    if isinstance(want, torch.Tensor):
+        if got.dtype != want.dtype or not torch.equal(got.to(want.device), want):
+            fail(f"{path} differs from the saved one")
+        return 1
+    if isinstance(want, dict):
+        if sorted(got) != sorted(want):
+            fail(f"{path}: keys differ")
+        return sum(assert_trees_equal(got[k], want[k], f"{path}/{k}") for k in want)
+    if isinstance(want, (list, tuple)):
+        return sum(assert_trees_equal(a, b, f"{path}/{i}")
+                   for i, (a, b) in enumerate(zip(got, want)))
+    if got != want:
+        fail(f"{path}: {got} against the saved {want}")
+    return 0
+
+
+def cli_loader(cfg: Config, bbox: bool):
+    """The loader the trainer tools' ``main`` builds."""
+    return get_dataloader(cfg.data_root, cfg.dataset_name, if_train=True,
+                          batch_size=cfg.train_batch_size, num_workers=cfg.dataloader_num_workers,
+                          clip_length=cfg.clip_length, if_return_bbox_im=bbox, train_H=cfg.train_H,
+                          train_W=cfg.train_W, seed=cfg.seed, pin_memory=True)[1]
+
+
+def report_steps(tag: str, probe: StepProbe, card: str) -> None:
+    for i, r in enumerate(probe.steps):
+        upd = (f", of which the update {r['update_secs']:.3f} s; moved: {r['moved_master']} "
+               f"masters and {r['moved_bf16']} bf16 tensors of {r['of']}") if "update_secs" in r \
+            else ""
+        print(f"[train_cli] {tag} micro-step {i}: {r['secs']:.3f} s{upd}, loss {r['loss']:.4f}, "
+              f"launches {r['launches']}; card {card}", flush=True)
+        if "update_secs" in r and not (r["moved_master"] and r["moved_bf16"]):
+            fail(f"{tag}: the update moved {r['moved_master']} masters, {r['moved_bf16']} bf16")
+
+
+def check_steps(tag: str, probe: StepProbe, expect: dict, n: int) -> None:
+    if len(probe.steps) != n:
+        fail(f"{tag}: {len(probe.steps)} micro-steps, expected {n}")
+    for i, r in enumerate(probe.steps):
+        if r["launches"] != expect:
+            fail(f"{tag} micro-step {i} launched {r['launches']}, expected {expect}")
+        if not (np.isfinite(r["loss"]) and r["loss"] > 0):
+            fail(f"{tag} micro-step {i}: loss {r['loss']}")
+
+
+def phase_train_cli(card: str, train: dict) -> dict:
+    """The three trainer entry points (``ctrlv_tpu_torch.tools.train_*``) at
+    full width, through each tool's own ``train(cfg, models, loader)`` on
+    models that its ``build_models`` loads from a seeded random bf16
+    checkpoint written by ``save_pipeline``, and synthetic clips of 25 frames
+    at 512x320 from ``get_dataloader``: block checkpointing, encode chunk 5,
+    AdamW with a bf16 first moment at lr 1e-5 without warm-up, under f32
+    master weights.
+
+    - ControlNet: accumulation 2, CLI_STEPS micro-steps with checkpoints at
+      CLI_CKPT and at the end and one validation on one demo sample; then a
+      second ``train`` from a fresh ``build_models`` with
+      ``resume_from_checkpoint="latest"`` for CLI_RESUMED more, whose restored
+      state must equal the saved one bit for bit; its export built back by
+      ``build_models`` (strict) with every tensor equal to its master. Each
+      micro-step launches what a ``[train]`` micro-step does;
+    - stage 1: the bbox predictor as a full finetune with EMA, two updates at
+      accumulation 2, launches as predicted from the module counts;
+    - the VAE decoder: one step on CLI_VAE_FRAMES frames.
+
+    Returns the launches of the micro-steps and the validation."""
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    root = tempfile.mkdtemp(prefix="train_cli_", dir=BUILD_DIR)
+    usage = shutil.disk_usage(root)
+    print(f"[train_cli] cuts: seeded random weights; {CLI_STEPS} + {CLI_RESUMED} ControlNet "
+          f"micro-steps, its validation {CLI_VAL_STEPS} Euler steps (the tool's default 25); "
+          f"stage 1 two updates; the VAE decoder one step on {CLI_VAE_FRAMES} frames (it is not "
+          f"checkpointed); disk {usage.free / 1e9:.0f} GB free of {usage.total / 1e9:.0f}",
+          flush=True)
+    path_counts = dict.fromkeys(_launch.LAUNCHES, 0)
+
+    def add(counts):
+        for k, v in counts.items():
+            path_counts[k] += v
+
+    try:
+        svd = os.path.join(root, "svd")
+        written, gb, write_s = write_random_checkpoint(svd)
+        del written
+        torch.cuda.empty_cache()
+        print(f"[train_cli] the start: a {gb:.3f} GB bf16 checkpoint written in {write_s:.3f} s",
+              flush=True)
+        common = dict(dataset_name="synthetic", data_root=root, clip_length=FRAMES, train_H=H,
+                      train_W=W, pretrained_model_name_or_path=svd, device=DEVICE,
+                      enable_gradient_checkpointing=True, vae_encode_chunk=ENCODE_CHUNK,
+                      adam_mu_dtype="bfloat16", learning_rate=1e-5, lr_warmup_steps=0,
+                      decode_chunk_size=CHUNK, num_demo_samples=1, seed=11)
+        scale = VAE_CONFIG.spatial_scale
+        lat = (H // scale, W // scale)
+
+        # --- the ControlNet trainer, then its resumed run
+        cfg = Config(output_dir=os.path.join(root, "controlnet"), max_train_steps=CLI_STEPS,
+                     gradient_accumulation_steps=ACCUM, checkpointing_steps=CLI_CKPT,
+                     validation_steps=CLI_VAL, num_inference_steps=CLI_VAL_STEPS, **common)
+        ckpt_dir = os.path.join(cfg.output_dir, "checkpoints")
+        val, run_validation = [], train_video_controlnet.run_validation
+
+        def timed_validation(*args, **kwargs):
+            torch.cuda.synchronize()
+            before, t0 = dict(_launch.LAUNCHES), time.perf_counter()
+            out = run_validation(*args, **kwargs)
+            torch.cuda.synchronize()
+            val.append((time.perf_counter() - t0,
+                        {n: _launch.LAUNCHES[n] - before[n] for n in before}))
+            return out
+
+        runs = []
+        for run in ("first", "resumed"):
+            TimedCheckpoints.records = []
+            probe = StepProbe(train_video_controlnet.make_controlnet_train_step)
+            t0 = time.perf_counter()
+            models = tool_common.build_models(cfg, tiny=False, with_controlnet=True,
+                                              masters=("ctrl",))
+            torch.cuda.synchronize()
+            build_s = time.perf_counter() - t0
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            with patched(train_video_controlnet, make_controlnet_train_step=probe,
+                         CheckpointManager=TimedCheckpoints,
+                         run_validation=timed_validation):
+                state = train_video_controlnet.train(cfg, models, cli_loader(cfg, True))
+            torch.cuda.synchronize()
+            runs.append(dict(secs=time.perf_counter() - t0, build_s=build_s, probe=probe,
+                             peak=torch.cuda.max_memory_allocated() / 2**30,
+                             records=list(TimedCheckpoints.records)))
+            if run == "first":
+                if state.step != CLI_STEPS or sorted(os.listdir(ckpt_dir)) != [
+                        f"checkpoint-{CLI_CKPT}", f"checkpoint-{CLI_STEPS}"]:
+                    fail(f"the ControlNet trainer: step {state.step}, {os.listdir(ckpt_dir)}")
+                saved = CheckpointManager(ckpt_dir).restore(CLI_STEPS)
+                n_saved = assert_trees_equal(tool_common.train_state_tree(state), saved)
+                del models, state
+                torch.cuda.empty_cache()
+
+                def check_restored(tree):
+                    n = assert_trees_equal(tree, saved)
+                    print(f"[train_cli] resumed: the restored masters, moments, accumulated "
+                          f"gradient, counters and step equal the saved ones bit for bit "
+                          f"({n} tensors, step {tree['step']})", flush=True)
+
+                TimedCheckpoints.on_restore = check_restored
+                cfg = dataclasses.replace(cfg, max_train_steps=CLI_STEPS + CLI_RESUMED,
+                                          resume_from_checkpoint="latest")
+        TimedCheckpoints.on_restore = None
+        del saved
+        if state.step != CLI_STEPS + CLI_RESUMED or not any(r[0] == "restore"
+                                                           for r in runs[1]["records"]):
+            fail(f"the resumed ControlNet trainer ended at step {state.step} without a restore")
+        expect = {k: v // (2 * ACCUM) for k, v in train.items()}
+        for run, tag in zip(runs, ("ControlNet", "ControlNet resumed")):
+            check_steps(tag, run["probe"], expect, CLI_STEPS if tag == "ControlNet" else CLI_RESUMED)
+            report_steps(tag, run["probe"], card)
+            for r in run["probe"].steps:
+                add(r["launches"])
+        nets = dict(unet=models["unet"], ctrl=models["ctrl"], vae=models["vae"],
+                    clip=models["clip"])
+        val_expect = expected_launches(
+            nets, {"clip": 1, "enc": 2, "dec": decode_calls(FRAMES, CHUNK, None),
+                   "ctrl": CLI_VAL_STEPS, "unet": CLI_VAL_STEPS},
+            {"ctrl": ("small_mha", False), "unet": ("small_mha", False)})
+        if len(val) != 1 or val[0][1] != val_expect:
+            fail(f"the ControlNet trainer's validations: {val}, expected one of {val_expect}")
+        add(val[0][1])
+        media = os.path.join(cfg.output_dir, "media", "videos", f"step_{CLI_VAL}")
+        if sorted(os.listdir(media)) != ["generated_videos_0.gif", "gt_bbox_frames_0.gif",
+                                         "gt_videos_0.gif"]:
+            fail(f"the validation's media: {os.listdir(media)}")
+        with open(os.path.join(cfg.output_dir, "logs", "metrics.jsonl")) as f:
+            logged = [json.loads(line)["step"] for line in f]
+        if logged != list(range(1, CLI_STEPS + CLI_RESUMED + 1)):
+            fail(f"metrics.jsonl holds steps {logged}")
+
+        # the export, built back strictly
+        export = os.path.join(cfg.output_dir, "pipeline", "control_net")
+        masters = state.opt_state["master"]
+        for name, t in iter_tensors(os.path.join(export, "diffusion_pytorch_model.safetensors")):
+            if t.dtype != torch.float32 or not torch.equal(t.to(DEVICE), masters[name]):
+                fail(f"the exported {name} is not its master")
+        export_gb = dir_gb(export)
+        del models, state, masters, nets
+        torch.cuda.empty_cache()
+        back = tool_common.build_models(
+            Config(pretrained_model_name_or_path=os.path.dirname(export), mixed_precision="no",
+                   device=DEVICE), tiny=False, with_controlnet=True)
+        load_hf_component(export, back["ctrl"], strict=True)
+        print(f"[train_cli] the {export_gb:.3f} GB f32 export built back by build_models and "
+              f"loaded strictly; every tensor equal to its master bit for bit", flush=True)
+        del back
+        torch.cuda.empty_cache()
+        for run, tag in zip(runs, ("first run", "resumed run")):
+            steps = run["probe"].steps
+            plain = [r["secs"] for r in steps if "update_secs" not in r]
+            updates = [r["update_secs"] for r in steps if "update_secs" in r]
+            saves = [r for r in run["records"] if r[0] == "write"]
+            calls = [r for r in run["records"] if r[0] == "save"]
+            restores = [r for r in run["records"] if r[0] == "restore"]
+            ckpt_gb = saves[-1][3]
+            print(f"[train_cli] ControlNet trainer, {tag}: {run['secs']:.3f} s in train() "
+                  f"(build_models {run['build_s']:.3f} s); s/micro-step without an update "
+                  f"{', '.join(f'{x:.3f}' for x in plain)}; s/update "
+                  f"{', '.join(f'{x:.3f}' for x in updates)}; checkpoint {ckpt_gb:.3f} GB: "
+                  + ", ".join(f"step {r[1]} written in {r[2]:.3f} s ({r[3] / r[2]:.2f} GB/s)"
+                              for r in saves)
+                  + "; save() calls " + ", ".join(f"{r[2]:.3f} s" for r in calls)
+                  + "".join(f"; restored in {r[2]:.3f} s ({ckpt_gb / r[2]:.2f} GB/s)"
+                            for r in restores)
+                  + f"; max_memory_allocated {run['peak']:.2f} GiB; card {card}", flush=True)
+        print(f"[train_cli] ControlNet validation, {CLI_VAL_STEPS} Euler steps, 1x{FRAMES} frames "
+              f"at {W}x{H}: {val[0][0]:.3f} s (with its three GIFs), launches {val[0][1]}",
+              flush=True)
+        shutil.rmtree(cfg.output_dir)
+
+        # --- the stage-1 trainer: the bbox predictor as a full finetune with EMA
+        cfg1 = Config(output_dir=os.path.join(root, "stage1"), max_train_steps=2 * ACCUM,
+                      gradient_accumulation_steps=ACCUM, checkpointing_steps=2 * ACCUM,
+                      validation_steps=0, predict_bbox=True, use_ema=True, **common)
+        probe = StepProbe(train_video_diffusion.make_svd_train_step)
+        TimedCheckpoints.records = []
+        models = tool_common.build_models(cfg1, tiny=False, masters=("unet",))
+        unet = models["unet"]
+        nets = dict(unet=unet, vae=models["vae"], clip=models["clip"])
+        # every UNet parameter trains: every block carries a graph and runs twice;
+        # no feed-forward is without a gradient, so K6 takes none
+        expect1 = train_expected_launches(nets, [(b, lvl, 2) for b, lvl in blocks_by_level(unet)],
+                                          1, lat, -(-FRAMES // ENCODE_CHUNK) + 1)
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        with patched(train_video_diffusion, make_svd_train_step=probe,
+                     CheckpointManager=TimedCheckpoints):
+            state = train_video_diffusion.train(cfg1, models, cli_loader(cfg1, True))
+        torch.cuda.synchronize()
+        secs, peak = time.perf_counter() - t0, torch.cuda.max_memory_allocated() / 2**30
+        check_steps("stage 1", probe, expect1, 2 * ACCUM)
+        report_steps("stage 1", probe, card)
+        for r in probe.steps:
+            add(r["launches"])
+        write = [r for r in TimedCheckpoints.records if r[0] == "write"][-1]
+        n_train = sum(m.numel() for m in state.opt_state["master"].values())
+        total = torch.cuda.get_device_properties(0).total_memory / 2**30
+        print(f"[train_cli] stage-1 trainer (predict_bbox, full finetune, EMA, {n_train / 1e9:.3f} "
+              f"B f32 masters in {len(state.params)} tensors): {secs:.3f} s in train(); "
+              f"s/micro-step without an update "
+              f"{', '.join(f'{r['secs']:.3f}' for r in probe.steps if 'update_secs' not in r)}; "
+              f"s/update {', '.join(f'{r['update_secs']:.3f}' for r in probe.steps if 'update_secs' in r)}; "
+              f"checkpoint {write[3]:.3f} GB written in {write[2]:.3f} s ({write[3] / write[2]:.2f} "
+              f"GB/s); exports {dir_gb(os.path.join(cfg1.output_dir, 'pipeline')):.3f} + "
+              f"{dir_gb(os.path.join(cfg1.output_dir, 'pipeline_ema')):.3f} GB; "
+              f"max_memory_allocated {peak:.2f} GiB of {total:.1f}; card {card}", flush=True)
+        del models, state, unet, nets
+        torch.cuda.empty_cache()
+        shutil.rmtree(cfg1.output_dir)
+
+        # --- the VAE-decoder trainer: one step
+        cfgv = Config(output_dir=os.path.join(root, "vae"), max_train_steps=1,
+                      validation_steps=0, **dict(common, clip_length=CLI_VAE_FRAMES))
+        probe = StepProbe(train_vae_finetuning.make_vae_decoder_train_step)
+        models = tool_common.build_models(cfgv, tiny=False, masters=("vae",))
+        torch.cuda.reset_peak_memory_stats()
+        with patched(train_vae_finetuning, make_vae_decoder_train_step=probe):
+            state = train_vae_finetuning.train(cfgv, models, cli_loader(cfgv, False))
+        torch.cuda.synchronize()
+        report_steps("VAE decoder", probe, card)
+        if len(probe.steps) != 1 or not all(k.startswith("decoder.") for k in state.params):
+            fail(f"the VAE trainer: {len(probe.steps)} steps")
+        add(probe.steps[0]["launches"])
+        print(f"[train_cli] VAE-decoder trainer, 1x{CLI_VAE_FRAMES} frames at {W}x{H}: "
+              f"max_memory_allocated {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
+              f"card {card}", flush=True)
+        del models, state
+        torch.cuda.empty_cache()
+        return path_counts
+    finally:
+        TimedCheckpoints.on_restore = None
+        shutil.rmtree(root, ignore_errors=True)
 
 
 # Kinds of device kernel by a word of the name torch.profiler reports; the
@@ -2092,6 +2524,7 @@ def main() -> None:
     del models
     torch.cuda.empty_cache()
     paths["eval"] = phase_eval(card, paths["overall"])
+    paths["train_cli"] = phase_train_cli(card, paths["train"])
 
     rows = []
     for kind, meta in KERNELS.items():
@@ -2115,7 +2548,8 @@ def main() -> None:
               "overall": kind != "resblock",
               "eval": kind not in ("small_mha_fm", "resblock"),
               "train": kind not in ("small_mha_fm", "resblock"),
-              "train_svd": kind != "small_mha_fm"}
+              "train_svd": kind != "small_mha_fm",
+              "train_cli": kind not in ("small_mha_fm", "resblock")}
         if any((paths[name][kind] > 0) != due for name, due in on.items()):
             fail(f"{kind} was not launched on its paths: {rows[-1]['launches_by_path']}")
     print_launches_by_shape()

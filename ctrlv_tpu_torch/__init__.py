@@ -2,9 +2,12 @@
 sampler, the stage-1 bbox sampler, the two-stage overall pipeline that joins
 them, the training steps (``train``), diffusers checkpoints in and out
 (``train.hf_import``, ``train.hf_export``; the safetensors format in
-``utils.safetensors_io``), the data path (``data``) and the evaluation
+``utils.safetensors_io``), the data path (``data``), the evaluation
 tools (``python -m ctrlv_tpu_torch.tools.eval_overall``,
-``tools.eval_video_controlnet``).
+``tools.eval_video_controlnet``) and the trainers
+(``tools.train_video_controlnet``, ``tools.train_video_diffusion``,
+``tools.train_vae_finetuning``: f32 master weights under bf16 compute,
+training-state checkpoints, in-loop validation).
 
 The JAX package ``ctrlv_tpu`` is the reference this port is held against;
 this package imports neither JAX nor flax. Its modules mirror that

@@ -1,10 +1,13 @@
 """Training of the port: the stage-1 (SVD), ControlNet (Box2Video) and
 VAE-decoder steps, their loss, the trainable subsets, LoRA, EMA and the
-optimizers; diffusers checkpoints in (``hf_import.load_hf_component``) and
-out (``hf_export.save_pipeline``). The training-state checkpoints of
-``ctrlv_tpu/train/checkpoints.py``, f32 master weights and the trainers'
-command lines are not ported yet."""
+optimizers with f32 master weights (``MasterWeights``); diffusers
+checkpoints in (``hf_import.load_hf_component``) and out
+(``hf_export.save_pipeline``); training-state checkpoints
+(``checkpoints.CheckpointManager``) and the trainers' tracking and in-loop
+validation (``observability``). The command lines are in
+``ctrlv_tpu_torch.tools``."""
 
+from .checkpoints import CheckpointManager
 from .ema import EMAState, ema_init, ema_update
 from .hf_export import save_component, save_pipeline
 from .hf_import import load_hf_component, load_safetensors
@@ -15,6 +18,7 @@ from .state import (
     AdamW,
     ApplyIfFinite,
     Masked,
+    MasterWeights,
     MultiSteps,
     ScheduledFreeze,
     TrainState,

@@ -12,8 +12,9 @@ a component directory loads by name, with no renaming or transposing:
 - under ``strict`` a key the module has and the files lack raises; without
   it the module keeps its own value there;
 - a tensor whose shape differs from the module's raises in either mode;
-- each tensor is cast to the dtype of the module's own tensor and copied to
-  its device.
+- each tensor is copied to the device of the module's own tensor and cast
+  there to its dtype (a cast on the host would convert the whole checkpoint
+  on the CPU first).
 
 Files are read with ``ctrlv_tpu_torch.utils.safetensors_io``, not the
 ``safetensors`` package.
@@ -54,5 +55,5 @@ def load_hf_component(component_dir: str, module: torch.nn.Module, strict: bool 
             f"{dict(list(mismatch.items())[:4])} ({len(mismatch)} total)")
     for name, dst in own.items():
         if name in state:
-            dst.copy_(state[name])
+            dst.copy_(state[name].to(dst.device))
     return extra

@@ -8,8 +8,12 @@ with the JAX package's shapes, and only they train. The effective weight is
     W_eff = W + (A B)^T * scale
 
 because ``nn.Linear`` stores W as (d_out, d_in), the transpose of the flax
-kernel that the JAX package adds A B to. Nothing edits the base weights in
-place: ``apply_lora`` builds a new dictionary, and ``lora_applied`` lets a
+kernel that the JAX package adds A B to. The adapters are f32, as JAX's
+``lora_init`` gives them over the f32 parameters of its trainers; the sum is
+taken in f32 and rounded once to the base weight's dtype. Where the base
+weight is bf16 (the JAX trainers hold it in f32), the effective weight may
+therefore differ from the JAX one's bf16 cast by one bf16 ulp. Nothing edits
+the base weights in place: ``apply_lora`` builds a new dictionary, and ``lora_applied`` lets a
 module compute with the effective weights, as tensors that carry the graph
 back to A and B, for as long as its block lasts. The block has to span the
 backward pass too where blocks are checkpointed, because their forward runs
@@ -41,9 +45,9 @@ def _target_module(name: str):
 
 def lora_init(source: Union[torch.Generator, Mapping[str, torch.Tensor]], params,
               rank: int = 4) -> Dict[str, torch.Tensor]:
-    """Adapters without effect: A ~ N(0, 1) / rank, B = 0, in the weight's
-    dtype and on its device. ``source`` is the generator that draws every A,
-    or a mapping ``{"<module>.lora_a": A}`` that gives them."""
+    """Adapters without effect: A ~ N(0, 1) / rank, B = 0, in f32 on the
+    weight's device. ``source`` is the generator that draws every A, or a
+    mapping ``{"<module>.lora_a": A}`` that gives them."""
     lora = {}
     for name, weight in named_tensors(params).items():
         module = _target_module(name)
@@ -52,15 +56,15 @@ def lora_init(source: Union[torch.Generator, Mapping[str, torch.Tensor]], params
         d_out, d_in = weight.shape
         if isinstance(source, torch.Generator):
             a = torch.randn((d_in, rank), generator=source, device=source.device)
-            a = (a / rank).to(weight.device, weight.dtype)
+            a = (a / rank).to(weight.device, torch.float32)
         else:
-            a = torch.as_tensor(source[f"{module}.lora_a"]).to(weight.device, weight.dtype)
+            a = torch.as_tensor(source[f"{module}.lora_a"]).to(weight.device, torch.float32)
             if a.shape != (d_in, rank):
                 raise ValueError(
                     f"{module}.lora_a: shape {tuple(a.shape)}, expected {(d_in, rank)}")
         lora[f"{module}.lora_a"] = a.clone().requires_grad_(True)
         lora[f"{module}.lora_b"] = torch.zeros(
-            (rank, d_out), dtype=weight.dtype, device=weight.device, requires_grad=True)
+            (rank, d_out), dtype=torch.float32, device=weight.device, requires_grad=True)
     return lora
 
 
@@ -69,11 +73,13 @@ def _modules(lora: Mapping[str, torch.Tensor]):
 
 
 def apply_lora(params, lora: Mapping[str, torch.Tensor], scale: float = 1.0):
-    """A new dictionary with W_eff = W + (A B)^T * scale for each adapted weight."""
+    """A new dictionary with W_eff = W + (A B)^T * scale for each adapted
+    weight, summed in f32 and rounded once to W's dtype."""
     merged = named_tensors(params)
     for module in _modules(lora):
-        delta = (lora[f"{module}.lora_a"] @ lora[f"{module}.lora_b"]).t() * scale
-        merged[f"{module}.weight"] = merged[f"{module}.weight"] + delta
+        delta = (lora[f"{module}.lora_a"].float() @ lora[f"{module}.lora_b"].float()).t() * scale
+        weight = merged[f"{module}.weight"]
+        merged[f"{module}.weight"] = (weight.float() + delta).to(weight.dtype)
     return merged
 
 

@@ -25,9 +25,18 @@ dtype, the second moment and the accumulated gradient the parameter's. The
 update itself is computed in f32 and rounded once into each of them, with
 each decay constant rounded to the dtype of the array it multiplies, as JAX's
 weak typing rounds it: that is optax's arithmetic under ``jit`` exactly for
-f32 parameters with an f32 or bf16 first moment. For bf16 parameters it
-keeps the reference's quirk that b2 = 0.999 is 1.0 beside a bf16 second
-moment; f32 master weights, which come with the trainer CLI, remove it.
+f32 parameters with an f32 or bf16 first moment.
+
+The JAX trainers hold f32 parameters and compute in bf16 (each layer casts
+its weights as it computes). ``MasterWeights`` gives the port the same: the
+modules hold bf16 tensors, the optimizer sees an f32 master of each, and the
+update writes every master back into its module tensor rounded to nearest
+even, as ``astype(bf16)`` rounds in the JAX layer. The gradient with respect
+to an f32 parameter that a layer casts to bf16 is the bf16 gradient upcast,
+so the update equals optax's on the f32 parameters given the same
+gradients. Without it, bf16 parameters keep the reference's quirk that b2 =
+0.999 is 1.0 beside a bf16 second moment, and at a learning rate of 1e-5
+most updates round away.
 """
 
 from __future__ import annotations
@@ -363,6 +372,50 @@ class MultiSteps:
             state["inner"] = self.inner.update(state["acc_grads"], state["inner"], params)
             state["gradient_step"] += 1
         state["mini_step"] = (n + 1) % self.k
+        return state
+
+
+class MasterWeights:
+    """f32 master weights under bf16 compute. ``init(params)`` keeps an f32
+    master of each tensor: ``start[name]`` where given (the f32 values the
+    module was rounded from; used as it is where it is already f32 on the
+    tensor's device), else the tensor upcast; an f32 tensor is its own
+    master. ``inner`` sees only the masters, so its moments, accumulated
+    gradients and counters are what optax holds for f32 parameters: wrap
+    ``MultiSteps`` and ``ApplyIfFinite``, not the other way round.
+    ``update`` upcasts the gradients, runs ``inner`` on the masters and
+    writes each master back into its module tensor (``sync``)."""
+
+    def __init__(self, inner, start: Optional[Params] = None):
+        self.inner, self.start = inner, dict(start or {})
+
+    def init(self, params: Params) -> dict:
+        masters = {}
+        for name, p in params.items():
+            if p.dtype == torch.float32:
+                masters[name] = p
+                continue
+            src = self.start.get(name, p)
+            if src.shape != p.shape:
+                raise ValueError(f"{name}: master of shape {tuple(src.shape)} for a tensor of "
+                                 f"{tuple(p.shape)}")
+            masters[name] = src.detach().to(p.device, torch.float32)
+        state = {"master": masters, "inner": self.inner.init(masters)}
+        self.sync(state, params)
+        return state
+
+    @torch.no_grad()
+    def sync(self, state: dict, params: Params) -> None:
+        """Each module tensor := its master, rounded to nearest even."""
+        pairs = [(p, state["master"][k]) for k, p in params.items()
+                 if p is not state["master"][k]]
+        if pairs:
+            torch._foreach_copy_([p for p, _ in pairs], [m for _, m in pairs])
+
+    def update(self, grads: Params, state: dict, params: Params) -> dict:
+        state["inner"] = self.inner.update({k: g.float() for k, g in grads.items()},
+                                           state["inner"], state["master"])
+        self.sync(state, params)
         return state
 
 

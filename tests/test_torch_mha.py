@@ -229,8 +229,8 @@ def test_gelu_routes_by_dtype():
 
 
 def test_import_leaves_jax_and_flax_out():
-    """No module of the port imports JAX, flax, optax, the JAX package or the
-    safetensors package."""
+    """No module of the port imports JAX, flax, optax, orbax, the JAX package
+    or the safetensors package."""
     code = (
         "import sys, ctrlv_tpu_torch, ctrlv_tpu_torch.models, ctrlv_tpu_torch.pipelines, "
         "ctrlv_tpu_torch.convert, ctrlv_tpu_torch.ops, ctrlv_tpu_torch.metrics.iou, "
@@ -250,9 +250,13 @@ def test_import_leaves_jax_and_flax_out():
         "ctrlv_tpu_torch.data.loader, ctrlv_tpu_torch.data.bdd100k, ctrlv_tpu_torch.data.kitti, "
         "ctrlv_tpu_torch.data.vkitti, ctrlv_tpu_torch.data.mkitti, "
         "ctrlv_tpu_torch.tools.common, ctrlv_tpu_torch.tools.eval_overall, "
-        "ctrlv_tpu_torch.tools.eval_video_controlnet, ctrlv_tpu_torch.metrics.image; "
-        "bad = sorted(m for m in sys.modules "
-        "if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'optax', 'ctrlv_tpu', 'safetensors')); "
+        "ctrlv_tpu_torch.tools.eval_video_controlnet, ctrlv_tpu_torch.metrics.image, "
+        "ctrlv_tpu_torch.train.checkpoints, ctrlv_tpu_torch.train.observability, "
+        "ctrlv_tpu_torch.utils.misc, ctrlv_tpu_torch.utils.samples, "
+        "ctrlv_tpu_torch.tools.train_video_controlnet, ctrlv_tpu_torch.tools.train_video_diffusion, "
+        "ctrlv_tpu_torch.tools.train_vae_finetuning; "
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'ctrlv_tpu', 'safetensors')); "
         "print(bad); sys.exit(1 if bad else 0)"
     )
     proc = subprocess.run(
