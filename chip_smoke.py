@@ -3,9 +3,9 @@
     python3 chip_smoke.py
 
 Drives the port's two serving paths, its ControlNet and stage-1 training
-steps, its overall-eval entry point and its three trainer entry points at the
-full SVD-XT width with seeded random bf16 weights, through its eight
-hand-written CUDA kernels:
+steps, its overall-eval entry point, its three trainer entry points and its
+evaluation-metric commands at the full SVD-XT width with seeded random bf16
+weights, through its eight hand-written CUDA kernels:
 
 1. device: the card's name and power limit, torch and CUDA versions, the
    TF32 switches;
@@ -85,12 +85,30 @@ hand-written CUDA kernels:
    restored state must equal the saved one bit for bit), its f32 export built
    back strictly and equal to the masters bit for bit; the stage-1 trainer
    (the bbox predictor, full finetune, EMA) for two updates at accumulation 2;
-   the VAE trainer for one step on 8 frames. Each micro-step's launches must
+   the VAE trainer for one step on 8 frames. The stage-1 trainer's checkpoint
+   and exports are counted and timed up to the host copy, not written: the
+   card's machine charges every byte written to its disk, deleted or not,
+   against a limit (one checkpoint, written by [eval], serves [eval],
+   [train_cli] and [eval_metrics] for the same reason). Each micro-step's launches must
    be a [train] micro-step's (ControlNet) or the count predicted from the
    module counts (stage 1), the validation's those of a sampler of 5 steps;
    s/micro-step, s/update, the checkpoint's GB with its write and restore
    GB/s, peak memory and how many trained tensors moved in master and in bf16
-   at each update are printed.
+   at each update are printed;
+12. eval_metrics: the evaluation-metric commands on models built by the
+   tools' build_models from a seeded random bf16 checkpoint: the stage-1 eval
+   (ctrlv_tpu_torch.tools.eval_video_bbox_prediction) and the generation eval
+   (tools.eval_video_generation, with its FVD) over two synthetic clips each
+   (25 frames at 512x320, 25 steps, CFG 1 -> 3, decode chunk 8, two loader
+   workers), each clip's frames, scores and launches (a 25-step stage-1
+   sampler's) checked, s/clip, scoring, export and peak memory printed; the
+   I3D alone at its published widths on a 25-frame clip at 224x224 in f32,
+   timed beside its bound (FLOPs by FlopCounterMode) and with TF32 on; then
+   the offline eval (metrics.offline_eval) of the exported directory with
+   seeded I3D and LPIPS weights at the JAX defaults, its seconds split into
+   GIF decode and the rest, and the card's I3D features and LPIPS distances
+   held against the same modules on the CPU in f32 (and how far TF32 would
+   move them).
 
 ``python3 chip_smoke.py --profile [DIR]`` instead builds the models and
 prints one step's device time by kind of kernel (torch.profiler; the tables
@@ -152,7 +170,8 @@ from ctrlv_tpu_torch.pipelines import (  # noqa: E402
 )
 from ctrlv_tpu_torch.tools import common as tool_common  # noqa: E402
 from ctrlv_tpu_torch.tools import (  # noqa: E402
-    eval_overall, train_vae_finetuning, train_video_controlnet, train_video_diffusion,
+    eval_overall, eval_video_bbox_prediction, eval_video_generation, train_vae_finetuning,
+    train_video_controlnet, train_video_diffusion,
 )
 from ctrlv_tpu_torch.tools.timing import device_ms  # noqa: E402
 from ctrlv_tpu_torch.train import (  # noqa: E402
@@ -1930,107 +1949,110 @@ def write_random_checkpoint(ckpt: str):
     return written, dir_gb(ckpt), time.perf_counter() - t0
 
 
-def phase_eval(card: str, overall: dict) -> dict:
+class CheckedPipeline:
+    """A pipeline with each call's peak memory and launches read around it:
+    its output checked by ``check``, its launches against ``expect``."""
+
+    def __init__(self, pipe, name: str, expect: dict, check):
+        self.pipe, self.name, self.expect, self.check = pipe, name, expect, check
+        self.device = pipe.device
+        self.calls = []  # (peak GiB, launches) a call
+
+    def __call__(self, *args, **kwargs):
+        torch.cuda.reset_peak_memory_stats()
+        before = dict(_launch.LAUNCHES)
+        res = self.pipe(*args, **kwargs)
+        torch.cuda.synchronize()
+        launches = {k: _launch.LAUNCHES[k] - before[k] for k in before}
+        self.calls.append((torch.cuda.max_memory_allocated() / 2**30, launches))
+        self.check(res)
+        check_launches(f"{self.name} {len(self.calls) - 1}", launches, self.expect)
+        return res
+
+
+def phase_eval(card: str, overall: dict, ckpt: str) -> dict:
     """The overall-eval entry point (``ctrlv_tpu_torch.tools.eval_overall``) at
     full width: seeded random bf16 UNet-ST, VAE and CLIP written as a diffusers
-    directory with the port's ``save_pipeline``; the models built from it by
-    the tool's ``build_models`` (strict, every tensor checked against the one
-    written, bit for bit); then the tool's loop over two synthetic clips of 25
-    frames at 512x320 from ``get_dataloader`` with two worker processes, with
-    the JAX tool's defaults (30 + 25 steps, decode chunk 8). Each request's
-    output, scores and launches are checked; its launches are ``[overall]``'s
-    with K3's taken by K2. Returns the launches of the whole loop."""
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    ckpt = tempfile.mkdtemp(prefix="eval_checkpoint_", dir=BUILD_DIR)
+    directory into ``ckpt`` with the port's ``save_pipeline`` (the later phases
+    build from it too); the models built from it by the tool's
+    ``build_models`` (strict, every tensor checked against the one written,
+    bit for bit); then the tool's loop over two synthetic clips of 25 frames
+    at 512x320 from ``get_dataloader`` with two worker processes, with the JAX
+    tool's defaults (30 + 25 steps, decode chunk 8). Each request's output,
+    scores and launches are checked; its launches are ``[overall]``'s with
+    K3's taken by K2. Returns the launches of the whole loop."""
+    written, gb, write_s = write_random_checkpoint(ckpt)
+    cfg = Config(dataset_name="synthetic", data_root=ckpt, clip_length=FRAMES, train_H=H,
+                 train_W=W, pretrained_model_name_or_path=ckpt, device=DEVICE,
+                 dataloader_num_workers=EVAL_WORKERS, num_inference_steps=STAGE2_STEPS,
+                 decode_chunk_size=CHUNK, num_demo_samples=EVAL_SAMPLES,
+                 output_dir=os.path.join(ckpt, "out"), seed=5)
+    t0 = time.perf_counter()
+    models = tool_common.build_models(cfg, tiny=False, with_controlnet=True)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    print(f"[eval] checkpoint {gb:.3f} GB (UNet-ST, VAE, CLIP ViT-H in bf16): written in "
+          f"{write_s:.3f} s ({gb / write_s:.2f} GB/s), built and loaded by build_models "
+          f"in {load_s:.3f} s ({gb / load_s:.2f} GB/s); card {card}", flush=True)
+    n_tensors = 0
+    for key, src in written.items():
+        got = models[key].state_dict()
+        for name, t in src.state_dict().items():
+            if got[name].dtype != t.dtype or not torch.equal(got[name], t):
+                fail(f"the loaded {key} differs from the written one at {name}")
+            n_tensors += 1
+    print(f"[eval] {n_tensors} loaded tensors equal the written ones bit for bit", flush=True)
+    del written
+    torch.cuda.empty_cache()
+
     try:
-        written, gb, write_s = write_random_checkpoint(ckpt)
-        cfg = Config(dataset_name="synthetic", data_root=ckpt, clip_length=FRAMES, train_H=H,
-                     train_W=W, pretrained_model_name_or_path=ckpt, device=DEVICE,
-                     dataloader_num_workers=EVAL_WORKERS, num_inference_steps=STAGE2_STEPS,
-                     decode_chunk_size=CHUNK, num_demo_samples=EVAL_SAMPLES,
-                     output_dir=os.path.join(ckpt, "out"), seed=5)
-        t0 = time.perf_counter()
-        models = tool_common.build_models(cfg, tiny=False, with_controlnet=True)
-        torch.cuda.synchronize()
-        load_s = time.perf_counter() - t0
-        print(f"[eval] checkpoint {gb:.3f} GB (UNet-ST, VAE, CLIP ViT-H in bf16): written in "
-              f"{write_s:.3f} s ({gb / write_s:.2f} GB/s), built and loaded by build_models "
-              f"in {load_s:.3f} s ({gb / load_s:.2f} GB/s); card {card}", flush=True)
-        n_tensors = 0
-        for key, src in written.items():
-            got = models[key].state_dict()
-            for name, t in src.state_dict().items():
-                if got[name].dtype != t.dtype or not torch.equal(got[name], t):
-                    fail(f"the loaded {key} differs from the written one at {name}")
-                n_tensors += 1
-        print(f"[eval] {n_tensors} loaded tensors equal the written ones bit for bit", flush=True)
-        del written
-        torch.cuda.empty_cache()
+        import PIL  # noqa: F401
+        export = True
+    except ImportError:
+        export = False
+        print("[eval] PIL cannot be imported here: the videos are not exported", flush=True)
+    _, loader = get_dataloader(
+        cfg.data_root, cfg.dataset_name, if_train=False, batch_size=1,
+        num_workers=cfg.dataloader_num_workers, clip_length=FRAMES, shuffle=False,
+        if_return_bbox_im=True, train_H=H, train_W=W, pin_memory=True)
+    pipe = eval_overall.make_pipeline(models)
 
-        try:
-            import PIL  # noqa: F401
-            export = True
-        except ImportError:
-            export = False
-            print("[eval] PIL cannot be imported here: the videos are not exported", flush=True)
-        _, loader = get_dataloader(
-            cfg.data_root, cfg.dataset_name, if_train=False, batch_size=1,
-            num_workers=cfg.dataloader_num_workers, clip_length=FRAMES, shuffle=False,
-            if_return_bbox_im=True, train_H=H, train_W=W, pin_memory=True)
-        pipe = eval_overall.make_pipeline(models)
-        expect = eval_expected_launches(overall)
-        per_request = []
+    def check(res):
+        check_clip("the eval video", res["video"], (FRAMES, H, W, 3))
+        check_clip("the eval bbox video", res["bbox_video"], (FRAMES, H, W, 3))
+        scores = [res[k] for k in eval_overall.SCORES]
+        if not all(isinstance(x, float) and 0.0 <= x <= 1.0 for x in scores):
+            fail(f"eval scores {scores}")
 
-        class Checked:
-            """The pipeline, with each request's output, peak memory and
-            launches read around it."""
-            device = pipe.device
+    checked = CheckedPipeline(pipe, "eval request", eval_expected_launches(overall), check)
+    _launch.reset_launch_counts()
+    t0 = time.perf_counter()
+    summary, samples = eval_overall.evaluate(checked, loader, cfg,
+                                             max_samples=EVAL_SAMPLES, export=export)
+    secs = time.perf_counter() - t0
+    counts = dict(_launch.LAUNCHES)
+    if len(samples) != EVAL_SAMPLES:
+        fail(f"the eval loop answered {len(samples)} requests")
+    for i, (sample, (peak, _)) in enumerate(zip(samples, checked.calls)):
+        print(f"[eval] request {i}: {sample['seconds']:.3f} s, loader wait "
+              f"{sample['loader_wait_seconds']:.3f} s, export "
+              f"{sample['export_seconds']:.3f} s, best_guidance "
+              f"{sample['best_guidance']}, " + ", ".join(
+                  f"{k} {sample[k]:.4f}" for k in eval_overall.SCORES)
+              + f"; max_memory_allocated {peak:.2f} GiB; card {card}", flush=True)
+    if export:
+        from ctrlv_tpu_torch.utils.video_io import load_video
 
-            def __call__(self, *args, **kwargs):
-                torch.cuda.reset_peak_memory_stats()
-                before = dict(_launch.LAUNCHES)
-                res = pipe(*args, **kwargs)
-                torch.cuda.synchronize()
-                launches = {k: _launch.LAUNCHES[k] - before[k] for k in before}
-                per_request.append((torch.cuda.max_memory_allocated() / 2**30, launches))
-                check_clip("the eval video", res["video"], (FRAMES, H, W, 3))
-                check_clip("the eval bbox video", res["bbox_video"], (FRAMES, H, W, 3))
-                scores = [res[k] for k in eval_overall.SCORES]
-                if not all(isinstance(x, float) and 0.0 <= x <= 1.0 for x in scores):
-                    fail(f"eval scores {scores}")
-                check_launches(f"eval request {len(per_request) - 1}", launches, expect)
-                return res
-
-        _launch.reset_launch_counts()
-        t0 = time.perf_counter()
-        summary, samples = eval_overall.evaluate(Checked(), loader, cfg,
-                                                 max_samples=EVAL_SAMPLES, export=export)
-        secs = time.perf_counter() - t0
-        counts = dict(_launch.LAUNCHES)
-        if len(samples) != EVAL_SAMPLES:
-            fail(f"the eval loop answered {len(samples)} requests")
-        for i, (sample, (peak, _)) in enumerate(zip(samples, per_request)):
-            print(f"[eval] request {i}: {sample['seconds']:.3f} s, loader wait "
-                  f"{sample['loader_wait_seconds']:.3f} s, export "
-                  f"{sample['export_seconds']:.3f} s, best_guidance "
-                  f"{sample['best_guidance']}, " + ", ".join(
-                      f"{k} {sample[k]:.4f}" for k in eval_overall.SCORES)
-                  + f"; max_memory_allocated {peak:.2f} GiB; card {card}", flush=True)
-        if export:
-            from ctrlv_tpu_torch.utils.video_io import load_video
-
-            for i in range(EVAL_SAMPLES):
-                for name in (f"generated_video_{i}.gif", f"predicted_bbox_{i}.gif"):
-                    video = load_video(os.path.join(cfg.output_dir, name))
-                    if video.shape[1:] != (H, W, 3):
-                        fail(f"{name} has shape {video.shape}")
-        print(f"[eval] {EVAL_SAMPLES} requests in {secs:.3f} s through {EVAL_WORKERS} loader "
-              f"workers, summary {summary}, exported {export}; launches {counts}", flush=True)
-        del models, pipe
-        torch.cuda.empty_cache()
-        return counts
-    finally:
-        shutil.rmtree(ckpt, ignore_errors=True)
+        for i in range(EVAL_SAMPLES):
+            for name in (f"generated_video_{i}.gif", f"predicted_bbox_{i}.gif"):
+                video = load_video(os.path.join(cfg.output_dir, name))
+                if video.shape[1:] != (H, W, 3):
+                    fail(f"{name} has shape {video.shape}")
+    print(f"[eval] {EVAL_SAMPLES} requests in {secs:.3f} s through {EVAL_WORKERS} loader "
+          f"workers, summary {summary}, exported {export}; launches {counts}", flush=True)
+    del models, pipe
+    torch.cuda.empty_cache()
+    return counts
 
 
 # [train_cli]: micro-steps of the ControlNet trainer's first run (a
@@ -2136,6 +2158,32 @@ class TimedCheckpoints(CheckpointManager):
         return tree
 
 
+class UnwrittenFiles(TimedCheckpoints):
+    """A ``TimedCheckpoints`` that takes each save's host copy and records its
+    size but writes nothing, and (``export``) a ``save_pipeline`` that records
+    the size of what it would write. The card's machine charges every byte
+    written to its disk, deleted or not, against a limit that the whole script
+    must stay under: the stage-1 trainer's 27 GB checkpoint and 15 GB of
+    exports would pass it; the ControlNet trainer writes and reads back its
+    own."""
+
+    def _write(self, step, skeleton, tensors):
+        nbytes = sum(t.numel() * t.element_size() for t in tensors.values())
+        self.records.append(("write", step, 0.0, nbytes / 1e9))
+
+    @staticmethod
+    def export(out_dir, tensors=None, dtype=None, **modules):
+        tensors = tensors or {}
+        nbytes = 0
+        for key, module in modules.items():
+            if module is not None:
+                for t in (tensors.get(key) or module.state_dict()).values():
+                    nbytes += t.numel() * (t.element_size() if dtype is None or not
+                                           t.is_floating_point() else dtype.itemsize)
+        TimedCheckpoints.records.append(("export", out_dir, 0.0, nbytes / 1e9))
+        return out_dir
+
+
 @contextlib.contextmanager
 def patched(module, **attrs):
     saved = {k: getattr(module, k) for k in attrs}
@@ -2195,11 +2243,11 @@ def check_steps(tag: str, probe: StepProbe, expect: dict, n: int) -> None:
             fail(f"{tag} micro-step {i}: loss {r['loss']}")
 
 
-def phase_train_cli(card: str, train: dict) -> dict:
+def phase_train_cli(card: str, train: dict, svd: str) -> dict:
     """The three trainer entry points (``ctrlv_tpu_torch.tools.train_*``) at
     full width, through each tool's own ``train(cfg, models, loader)`` on
-    models that its ``build_models`` loads from a seeded random bf16
-    checkpoint written by ``save_pipeline``, and synthetic clips of 25 frames
+    models that its ``build_models`` loads from the seeded random bf16
+    checkpoint ``[eval]`` wrote into ``svd``, and synthetic clips of 25 frames
     at 512x320 from ``get_dataloader``: block checkpointing, encode chunk 5,
     AdamW with a bf16 first moment at lr 1e-5 without warm-up, under f32
     master weights.
@@ -2212,7 +2260,8 @@ def phase_train_cli(card: str, train: dict) -> dict:
       ``build_models`` (strict) with every tensor equal to its master. Each
       micro-step launches what a ``[train]`` micro-step does;
     - stage 1: the bbox predictor as a full finetune with EMA, two updates at
-      accumulation 2, launches as predicted from the module counts;
+      accumulation 2, launches as predicted from the module counts; its
+      checkpoint and exports are counted, not written (``UnwrittenFiles``);
     - the VAE decoder: one step on CLI_VAE_FRAMES frames.
 
     Returns the launches of the micro-steps and the validation."""
@@ -2221,9 +2270,9 @@ def phase_train_cli(card: str, train: dict) -> dict:
     usage = shutil.disk_usage(root)
     print(f"[train_cli] cuts: seeded random weights; {CLI_STEPS} + {CLI_RESUMED} ControlNet "
           f"micro-steps, its validation {CLI_VAL_STEPS} Euler steps (the tool's default 25); "
-          f"stage 1 two updates; the VAE decoder one step on {CLI_VAE_FRAMES} frames (it is not "
-          f"checkpointed); disk {usage.free / 1e9:.0f} GB free of {usage.total / 1e9:.0f}",
-          flush=True)
+          f"stage 1 two updates, its checkpoint and exports not written; the VAE decoder one "
+          f"step on {CLI_VAE_FRAMES} frames (it is not checkpointed); disk "
+          f"{usage.free / 1e9:.0f} GB free of {usage.total / 1e9:.0f}", flush=True)
     path_counts = dict.fromkeys(_launch.LAUNCHES, 0)
 
     def add(counts):
@@ -2231,12 +2280,6 @@ def phase_train_cli(card: str, train: dict) -> dict:
             path_counts[k] += v
 
     try:
-        svd = os.path.join(root, "svd")
-        written, gb, write_s = write_random_checkpoint(svd)
-        del written
-        torch.cuda.empty_cache()
-        print(f"[train_cli] the start: a {gb:.3f} GB bf16 checkpoint written in {write_s:.3f} s",
-              flush=True)
         common = dict(dataset_name="synthetic", data_root=root, clip_length=FRAMES, train_H=H,
                       train_W=W, pretrained_model_name_or_path=svd, device=DEVICE,
                       enable_gradient_checkpointing=True, vae_encode_chunk=ENCODE_CHUNK,
@@ -2383,7 +2426,7 @@ def phase_train_cli(card: str, train: dict) -> dict:
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         with patched(train_video_diffusion, make_svd_train_step=probe,
-                     CheckpointManager=TimedCheckpoints):
+                     CheckpointManager=UnwrittenFiles, save_pipeline=UnwrittenFiles.export):
             state = train_video_diffusion.train(cfg1, models, cli_loader(cfg1, True))
         torch.cuda.synchronize()
         secs, peak = time.perf_counter() - t0, torch.cuda.max_memory_allocated() / 2**30
@@ -2392,6 +2435,8 @@ def phase_train_cli(card: str, train: dict) -> dict:
         for r in probe.steps:
             add(r["launches"])
         write = [r for r in TimedCheckpoints.records if r[0] == "write"][-1]
+        save = [r for r in TimedCheckpoints.records if r[0] == "save"][-1]
+        exports = [r[3] for r in TimedCheckpoints.records if r[0] == "export"]
         n_train = sum(m.numel() for m in state.opt_state["master"].values())
         total = torch.cuda.get_device_properties(0).total_memory / 2**30
         print(f"[train_cli] stage-1 trainer (predict_bbox, full finetune, EMA, {n_train / 1e9:.3f} "
@@ -2399,13 +2444,11 @@ def phase_train_cli(card: str, train: dict) -> dict:
               f"s/micro-step without an update "
               f"{', '.join(f'{r['secs']:.3f}' for r in probe.steps if 'update_secs' not in r)}; "
               f"s/update {', '.join(f'{r['update_secs']:.3f}' for r in probe.steps if 'update_secs' in r)}; "
-              f"checkpoint {write[3]:.3f} GB written in {write[2]:.3f} s ({write[3] / write[2]:.2f} "
-              f"GB/s); exports {dir_gb(os.path.join(cfg1.output_dir, 'pipeline')):.3f} + "
-              f"{dir_gb(os.path.join(cfg1.output_dir, 'pipeline_ema')):.3f} GB; "
+              f"checkpoint {write[3]:.3f} GB, its host copy {save[2]:.3f} s, not written; exports "
+              f"{' + '.join(f'{gb:.3f}' for gb in exports)} GB, not written; "
               f"max_memory_allocated {peak:.2f} GiB of {total:.1f}; card {card}", flush=True)
         del models, state, unet, nets
         torch.cuda.empty_cache()
-        shutil.rmtree(cfg1.output_dir)
 
         # --- the VAE-decoder trainer: one step
         cfgv = Config(output_dir=os.path.join(root, "vae"), max_train_steps=1,
@@ -2428,6 +2471,181 @@ def phase_train_cli(card: str, train: dict) -> dict:
         return path_counts
     finally:
         TimedCheckpoints.on_restore = None
+        shutil.rmtree(root, ignore_errors=True)
+
+
+# [eval_metrics]: clips of the two sampling eval commands; seeds of the I3D and
+# LPIPS weights of the offline eval
+METRICS_SAMPLES, I3D_SEED, LPIPS_SEED = 2, 31, 32
+# |card - CPU| of the I3D's features and LPIPS's distances, relative L2: the same
+# IEEE f32 arithmetic in cuDNN's order of sums
+METRICS_TOL = 1e-4
+
+
+def rel_l2(got, want) -> float:
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    return float(np.linalg.norm(got - want) / np.linalg.norm(want))
+
+
+def phase_eval_metrics(card: str, ckpt: str) -> dict:
+    """The evaluation-metric commands at full width, on models that the
+    tools' ``build_models`` loads from the seeded random bf16 checkpoint
+    ``[eval]`` wrote into ``ckpt``:
+
+    1. the stage-1 eval (``tools.eval_video_bbox_prediction.evaluate``) over
+       METRICS_SAMPLES synthetic clips from ``get_dataloader`` with two worker
+       processes: 25 frames at 512x320, 25 steps, CFG 1 -> 3, decode chunk 8;
+       frames, scores and each clip's launches (those of a 25-step
+       ``VideoDiffusionPipeline`` call) checked;
+    2. the generation eval (``tools.eval_video_generation.evaluate``) over the
+       same clips with ``compute_fvd=True``: the I3D at its published widths
+       on 25 frames at 224x224 in f32, timed alone beside its bound, and with
+       TF32 on for how far that moves the features;
+    3. the offline eval (``metrics.offline_eval.evaluate_media_dir``) of the
+       directory step 2 exported, with seeded I3D and LPIPS weights at the
+       JAX defaults (11 frames, 2x temporal downsample, 410x256), the time
+       split into GIF decode and the rest; then the card's I3D features and
+       LPIPS distances of those frames against the same modules on the CPU.
+
+    Returns the launches of the two sampling loops."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from ctrlv_tpu_torch.metrics import fvd as fvd_mod
+    from ctrlv_tpu_torch.metrics import lpips as lpips_mod
+    from ctrlv_tpu_torch.metrics import offline_eval
+    from ctrlv_tpu_torch.metrics.common import ieee_f32
+
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    root = tempfile.mkdtemp(prefix="eval_metrics_", dir=BUILD_DIR)
+    print(f"[eval_metrics] cuts: seeded random weights (UNet-ST, VAE, CLIP, I3D, LPIPS); "
+          f"{METRICS_SAMPLES} synthetic clips a command", flush=True)
+    try:
+        cfg = Config(dataset_name="synthetic", data_root=root, clip_length=FRAMES, train_H=H,
+                     train_W=W, pretrained_model_name_or_path=ckpt, device=DEVICE,
+                     dataloader_num_workers=EVAL_WORKERS, num_inference_steps=STAGE2_STEPS,
+                     decode_chunk_size=CHUNK, num_demo_samples=METRICS_SAMPLES, seed=7,
+                     min_guidance_scale=1.0, max_guidance_scale=3.0)
+        models = tool_common.build_models(cfg, tiny=False)
+        paths = {}
+        for path, tool, bbox in (("eval_bbox", eval_video_bbox_prediction, True),
+                                 ("eval_gen", eval_video_generation, False)):
+            cfg = dataclasses.replace(cfg, output_dir=os.path.join(root, path))
+            expect = expected_launches(
+                models, {"clip": 1, "enc": 2 if bbox else 1, "unet": STAGE2_STEPS,
+                         "dec": decode_calls(FRAMES, CHUNK, None)},
+                {"unet": ("small_mha", False)})
+            pipe = CheckedPipeline(
+                tool.make_pipeline(models), f"the {path} clip", expect,
+                lambda out: check_clip("the eval_metrics clip", out, (1, FRAMES, H, W, 3)))
+            _, loader = get_dataloader(
+                cfg.data_root, cfg.dataset_name, if_train=False, batch_size=1,
+                num_workers=EVAL_WORKERS, clip_length=FRAMES, shuffle=False,
+                if_return_bbox_im=bbox, train_H=H, train_W=W, pin_memory=True)
+            _launch.reset_launch_counts()
+            t0 = time.perf_counter()
+            summary, samples = tool.evaluate(pipe, loader, cfg, max_samples=METRICS_SAMPLES,
+                                             **({} if bbox else {"compute_fvd": True}))
+            secs = time.perf_counter() - t0
+            paths[path] = dict(_launch.LAUNCHES)
+            if len(samples) != METRICS_SAMPLES:
+                fail(f"{path} answered {len(samples)} clips")
+            for i, (s, (peak, _)) in enumerate(zip(samples, pipe.calls)):
+                scores = {k: s[k] for k in ("miou", "f_measure") if k in s}
+                if not all(np.isfinite(v) and 0.0 <= v <= 1.0 for v in scores.values()):
+                    fail(f"{path} clip {i}: scores {scores}")
+                extra = (f"scoring {s['scoring_seconds']:.3f} s, " if bbox
+                         else f"I3D of the pair (with its preprocessing) {s['fvd_seconds']:.3f} s, ")
+                print(f"[eval_metrics] {path} clip {i}: {s['seconds']:.3f} s/clip, loader wait "
+                      f"{s['loader_wait_seconds']:.3f} s, {extra}export {s['export_seconds']:.3f} "
+                      f"s, {scores}; max_memory_allocated {peak:.2f} GiB; card {card}",
+                      flush=True)
+            if not bbox and not np.isfinite(summary["fvd"]):
+                fail(f"the generation eval's FVD is {summary['fvd']}")
+            print(f"[eval_metrics] {path}: {METRICS_SAMPLES} clips in {secs:.3f} s, summary "
+                  f"{summary}; launches {paths[path]}", flush=True)
+        gen_dir = cfg.output_dir
+        del models, pipe
+        torch.cuda.empty_cache()
+
+        # The I3D alone, on a 25-frame clip at 512x320 resized and cropped to 224x224
+        from ctrlv_tpu_torch.utils.video_io import load_video
+
+        _, clip = synthetic_request(4)
+        i3d_sd = fvd_mod.FVD(device="cpu", seed=I3D_SEED).model.state_dict()
+        fvd = fvd_mod.FVD(state_dict=i3d_sd, device=DEVICE)
+        x = fvd_mod.preprocess_fvd(clip.to(DEVICE) / 2 + 0.5).permute(0, 4, 1, 2, 3).contiguous()
+        with torch.no_grad():
+            with FlopCounterMode(display=False) as counter:
+                fvd.model(x)
+            flops = counter.get_total_flops()
+            n_params = sum(p.numel() for p in fvd.model.parameters())
+            bound_ms = 1e3 * max((x.numel() + n_params + 400) * 4 / PEAK_BYTES, flops / PEAK_F32)
+            with ieee_f32():
+                ms = cuda_time_ms(lambda: fvd.model(x), reps=5, warmup=2)
+                feats = fvd.model(x).cpu().numpy()
+            # outside ieee_f32, the switches [device] set: TF32 on
+            tf32_ms = cuda_time_ms(lambda: fvd.model(x), reps=5, warmup=2)
+            tf32 = rel_l2(fvd.model(x).cpu().numpy(), feats)
+        print(f"[eval_metrics] I3D on (1, 3, {FRAMES}, 224, 224) f32: {ms:.3f} ms/clip, "
+              f"{flops / 1e9:.1f} GFLOP, bound {bound_ms:.3f} ms at {PEAK_F32 / 1e12:.0f} TFLOP/s "
+              f"f32; TF32 on: {tf32_ms:.3f} ms, features moved by {tf32:.2e} relative L2; "
+              f"card {card}", flush=True)
+
+        # The offline eval of the generation eval's directory
+        lpips_sd = lpips_mod.lpips_init_params(LPIPS_SEED)
+        decode = []
+
+        def timed_load(path):
+            t = time.perf_counter()
+            out = load_video(path)
+            decode.append(time.perf_counter() - t)
+            return out
+
+        t0 = time.perf_counter()
+        with patched(offline_eval, load_video=timed_load):
+            res = offline_eval.evaluate_media_dir(gen_dir, fvd_state_dict=i3d_sd,
+                                                  lpips_state_dict=lpips_sd, device=DEVICE)
+        secs = time.perf_counter() - t0
+        if res["num_pairs"] != METRICS_SAMPLES or not all(
+                np.isfinite(res[k]) for k in ("fvd", "ssim", "psnr", "lpips")):
+            fail(f"the offline eval gave {res}")
+        print(f"[eval_metrics] offline eval of {res['num_pairs']} pairs (11 frames, 2x temporal "
+              f"downsample, 410x256): fvd {res['fvd']:.6g} ssim {res['ssim']:.4f} psnr "
+              f"{res['psnr']:.3f} lpips {res['lpips']:.4f}; {secs:.3f} s = GIF decode "
+              f"{sum(decode):.3f} s + the rest (the networks' set-up, the card's work, the scores) "
+              f"{secs - sum(decode):.3f} s; card {card}", flush=True)
+
+        # Card against CPU, the same weights on the same frames, pair by pair
+        cpu_fvd = fvd_mod.FVD(state_dict=i3d_sd, device="cpu")
+        lp_cpu = lpips_mod.build_lpips(lpips_sd, "cpu")
+        lp = lpips_mod.build_lpips(lpips_sd, DEVICE)
+        got = {k: [] for k in ("feats", "feats_cpu", "feats_tf32", "d", "d_cpu", "d_tf32")}
+        for pair in offline_eval.pair_video_files(gen_dir):
+            gen, gt = (offline_eval._prepare(load_video(p), (410, 256), 11, True, "cpu")
+                       for p in pair)
+            n = min(len(gen), len(gt))
+            videos, a, b = torch.stack([gt[:n], gen[:n]]), gen[:n] * 2 - 1, gt[:n] * 2 - 1
+            got["feats_cpu"].append(cpu_fvd.features(videos))
+            got["feats"].append(fvd.features(videos))
+            got["d_cpu"].append(lpips_mod.lpips_distance(lp_cpu, a, b).numpy())
+            got["d"].append(lpips_mod.lpips_distance(lp, a, b).cpu().numpy())
+            with patched(fvd_mod, ieee_f32=contextlib.nullcontext), \
+                    patched(lpips_mod, ieee_f32=contextlib.nullcontext):
+                got["feats_tf32"].append(fvd.features(videos))
+                got["d_tf32"].append(lpips_mod.lpips_distance(lp, a, b).cpu().numpy())
+        feats, feats_cpu, feats_tf32, d, d_cpu, d_tf32 = (
+            np.concatenate(got[k]) for k in ("feats", "feats_cpu", "feats_tf32", "d", "d_cpu",
+                                             "d_tf32"))
+        errs = {"i3d": rel_l2(feats, feats_cpu), "lpips": rel_l2(d, d_cpu)}
+        print(f"[eval_metrics] card against CPU, f32: I3D features ({feats.shape[0]} clips) "
+              f"{errs['i3d']:.2e}, LPIPS distances ({d.shape[0]} frame pairs) {errs['lpips']:.2e} "
+              f"relative L2 (limit {METRICS_TOL:g}); with TF32 on the card: "
+              f"{rel_l2(feats_tf32, feats_cpu):.2e} and {rel_l2(d_tf32, d_cpu):.2e}; card {card}",
+              flush=True)
+        if not all(e <= METRICS_TOL for e in errs.values()):
+            fail(f"the metrics on the card differ from the CPU's: {errs}")
+        return paths
+    finally:
         shutil.rmtree(root, ignore_errors=True)
 
 
@@ -2523,8 +2741,16 @@ def main() -> None:
     paths["train_svd"] = phase_train_svd(models, card)
     del models
     torch.cuda.empty_cache()
-    paths["eval"] = phase_eval(card, paths["overall"])
-    paths["train_cli"] = phase_train_cli(card, paths["train"])
+    # one seeded bf16 checkpoint, written by [eval], for the three command phases:
+    # the card's machine charges every byte written to its disk against a limit
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    ckpt = tempfile.mkdtemp(prefix="checkpoint_", dir=BUILD_DIR)
+    try:
+        paths["eval"] = phase_eval(card, paths["overall"], ckpt)
+        paths["train_cli"] = phase_train_cli(card, paths["train"], ckpt)
+        paths.update(phase_eval_metrics(card, ckpt))
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
 
     rows = []
     for kind, meta in KERNELS.items():
@@ -2543,13 +2769,16 @@ def main() -> None:
             rows[-1].update(device_ms=float(np.mean(res["device_ms"])),
                             library_device_ms=float(np.mean(res["library_device_ms"])))
         # K1-K6 and K8 belong to the overall path, and all of them but K3 to the
-        # Box2Video, eval and training paths ("seq" layout); K7 to stage 1's training.
+        # Box2Video, eval, training and eval-metric paths ("seq" layout); K7 to
+        # stage 1's training.
         on = {"box2video": kind not in ("small_mha_fm", "resblock"),
               "overall": kind != "resblock",
               "eval": kind not in ("small_mha_fm", "resblock"),
               "train": kind not in ("small_mha_fm", "resblock"),
               "train_svd": kind != "small_mha_fm",
-              "train_cli": kind not in ("small_mha_fm", "resblock")}
+              "train_cli": kind not in ("small_mha_fm", "resblock"),
+              "eval_bbox": kind not in ("small_mha_fm", "resblock"),
+              "eval_gen": kind not in ("small_mha_fm", "resblock")}
         if any((paths[name][kind] > 0) != due for name, due in on.items()):
             fail(f"{kind} was not launched on its paths: {rows[-1]['launches_by_path']}")
     print_launches_by_shape()

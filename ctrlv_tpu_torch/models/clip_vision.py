@@ -9,12 +9,12 @@ from __future__ import annotations
 
 import dataclasses
 
-import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
 from ..ops.attention import dot_product_attention
+from ..utils.resize import resize_matrix
 from .layers import LayerNorm
 
 CLIP_IMAGE_MEAN = (0.48145466, 0.4578275, 0.40821073)
@@ -143,31 +143,6 @@ class CLIPVisionModelWithProjection(nn.Module):
         dtype = self.visual_projection.weight.dtype
         pooled = self.vision_model(pixel_values.to(dtype).permute(0, 3, 1, 2))
         return self.visual_projection(pooled)
-
-
-def _keys_cubic(x: np.ndarray) -> np.ndarray:
-    """Keys cubic kernel with a = -0.5 on |x|."""
-    out = ((1.5 * x - 2.5) * x) * x + 1.0
-    out = np.where(x >= 1.0, ((-0.5 * x + 2.5) * x - 4.0) * x + 2.0, out)
-    return np.where(x >= 2.0, 0.0, out)
-
-
-def resize_matrix(in_size: int, out_size: int) -> np.ndarray:
-    """(in, out) f32 weights of an antialiased Keys-cubic resize, built as
-    ``jax.image.scale_and_translate`` builds them (scale out/in, no
-    translation): on a downscale the kernel is widened by in/out."""
-    if in_size == out_size:  # jax.image.resize leaves such an axis as it is
-        return np.eye(in_size, dtype=np.float32)
-    inv_scale = np.float32(1.0 / (out_size / in_size))
-    kernel_scale = max(inv_scale, np.float32(1.0))
-    sample_f = (np.arange(out_size, dtype=np.float32) + 0.5) * inv_scale - 0.5
-    x = np.abs(sample_f[None, :] - np.arange(in_size, dtype=np.float32)[:, None]) / kernel_scale
-    w = _keys_cubic(x.astype(np.float32)).astype(np.float32)
-    total = w.sum(axis=0, keepdims=True)
-    ok = np.abs(total) > 1000.0 * float(np.finfo(np.float32).eps)
-    w = np.where(ok, w / np.where(total != 0, total, 1), 0).astype(np.float32)
-    inside = (sample_f >= -0.5) & (sample_f <= in_size - 0.5)
-    return np.where(inside[None, :], w, 0).astype(np.float32)
 
 
 def clip_preprocess(images, image_size: int = 224):

@@ -254,7 +254,12 @@ def test_import_leaves_jax_and_flax_out():
         "ctrlv_tpu_torch.train.checkpoints, ctrlv_tpu_torch.train.observability, "
         "ctrlv_tpu_torch.utils.misc, ctrlv_tpu_torch.utils.samples, "
         "ctrlv_tpu_torch.tools.train_video_controlnet, ctrlv_tpu_torch.tools.train_video_diffusion, "
-        "ctrlv_tpu_torch.tools.train_vae_finetuning; "
+        "ctrlv_tpu_torch.tools.train_vae_finetuning, ctrlv_tpu_torch.metrics, "
+        "ctrlv_tpu_torch.metrics.fandj, ctrlv_tpu_torch.metrics.davis, ctrlv_tpu_torch.metrics.common, "
+        "ctrlv_tpu_torch.metrics.lpips, ctrlv_tpu_torch.metrics.fvd, "
+        "ctrlv_tpu_torch.metrics.offline_eval, ctrlv_tpu_torch.utils.resize, "
+        "ctrlv_tpu_torch.tools.eval_video_bbox_prediction, "
+        "ctrlv_tpu_torch.tools.eval_video_generation; "
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'ctrlv_tpu', 'safetensors')); "
         "print(bad); sys.exit(1 if bad else 0)"
