@@ -3,9 +3,10 @@
     python3 chip_smoke.py
 
 Drives the port's two serving paths, its ControlNet and stage-1 training
-steps, its overall-eval entry point, its three trainer entry points and its
-evaluation-metric commands at the full SVD-XT width with seeded random bf16
-weights, through its eight hand-written CUDA kernels:
+steps, its overall-eval entry point, its three trainer entry points, its
+evaluation-metric commands and its measurement tools at the full SVD-XT
+width with seeded random bf16 weights, through its eight hand-written CUDA
+kernels:
 
 1. device: the card's name and power limit, torch and CUDA versions, the
    TF32 switches;
@@ -108,12 +109,22 @@ weights, through its eight hand-written CUDA kernels:
    seeded I3D and LPIPS weights at the JAX defaults, its seconds split into
    GIF decode and the rest, and the card's I3D features and LPIPS distances
    held against the same modules on the CPU in f32 (and how far TF32 would
-   move them).
+   move them);
+13. bench: the measurement tools (ctrlv_tpu_torch.tools.bench, bench_train,
+   profile_denoise), each run as a user runs it, in a process of its own
+   with a time limit, after [train_svd] has freed the models and before
+   [eval] writes its checkpoint: ``tools.bench --workload overall --runs 3``
+   (its Box2Video line and its overall line), ``tools.bench_train --regime
+   controlnet,lora,full --accum 5 --measure_steps 1`` and
+   ``tools.profile_denoise --steps 2``. Each JSON line is printed; every one
+   must hold its keys with finite values and an MFU in (0, 1), the Box2Video
+   clip's launches must be [sampler]'s and the overall request's [overall]'s,
+   and a clip's FLOPs the count that tests/test_torch_bench.py pins.
 
 ``python3 chip_smoke.py --profile [DIR]`` instead builds the models and
-prints one step's device time by kind of kernel (torch.profiler; the tables
-by kernel go to DIR, by default output/), with K7 off and on in turns, then
-K6 off and on.
+prints one step's device time by kind of kernel and by kernel
+(tools.profile_denoise over torch.profiler; the tables by kernel go to DIR,
+by default output/), with K7 off and on in turns, then K6 off and on.
 
 Forward hooks on every GroupNorm and LayerNorm count K4's and K5's launches
 by input shape on the four paths (an extra, untimed Box2Video request and
@@ -158,7 +169,6 @@ from ctrlv_tpu_torch.models import (  # noqa: E402
 )
 from ctrlv_tpu_torch.models import layers  # noqa: E402
 from ctrlv_tpu_torch.models.resnet import ResnetBlock2D  # noqa: E402
-from ctrlv_tpu_torch.models.transformer_st import TransformerSpatioTemporalModel  # noqa: E402
 from ctrlv_tpu_torch.ops import (  # noqa: E402
     _build, _launch, attention, geglu_ff, group_norm, layer_norm, mha, resblock,
 )
@@ -168,6 +178,7 @@ from ctrlv_tpu_torch.pipelines import (  # noqa: E402
     StableVideoControlPipeline,
     VideoDiffusionPipeline,
 )
+from ctrlv_tpu_torch.tools import bench, profile_denoise  # noqa: E402
 from ctrlv_tpu_torch.tools import common as tool_common  # noqa: E402
 from ctrlv_tpu_torch.tools import (  # noqa: E402
     eval_overall, eval_video_bbox_prediction, eval_video_generation, train_vae_finetuning,
@@ -446,11 +457,7 @@ def cuda_time_ms(fn, reps: int = 7, warmup: int = 2, inner: int = 1) -> float:
 def phase_device() -> str:
     if not torch.cuda.is_available():
         fail("no CUDA device")
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60,
-    )
-    card = smi.stdout.strip().splitlines()[0] if smi.returncode == 0 else "nvidia-smi failed"
+    card = bench.card_name(torch.device("cuda", 0))  # name, power limit by nvidia-smi
     print(f"[device] torch {torch.__version__} cuda {torch.version.cuda} "
           f"python {sys.version.split()[0]} count {torch.cuda.device_count()} card {card}")
     # The bf16 sampler's only f32 matmuls take bf16 values upcast (attention
@@ -963,54 +970,17 @@ def phase_grads() -> None:
     torch.cuda.empty_cache()
 
 
-@torch.no_grad()
-def init_random_(module: torch.nn.Module, seed: int) -> None:
-    """Seeded random weights: matrices and kernels N(0, 1/fan_in), norm
-    weights 1, biases 0, the CLIP class embedding N(0, 0.02); the blend
-    factors keep their constructor values. The ControlNet's zero convs get
-    random weights too, so that its residuals carry signal."""
-    gen = torch.Generator(device=next(module.parameters()).device).manual_seed(seed)
-    for name, p in module.named_parameters():
-        if name.endswith("mix_factor"):
-            continue
-        if p.dim() >= 2:
-            p.normal_(0.0, p[0].numel() ** -0.5, generator=gen)
-        elif name.endswith("class_embedding"):
-            p.normal_(0.0, 0.02, generator=gen)
-        elif name.endswith("bias"):
-            p.zero_()
-        else:
-            p.fill_(1.0)
-
-
 def build_models():
-    """Full-width models on the card: the Box2Video UNet and ControlNet, the
-    stage-1 UNet (frames-major), and the VAE and CLIP that both stages share."""
+    """Full-width models on the card (``tools.bench.build_models``, seeded
+    random bf16 weights): the Box2Video UNet and ControlNet, the stage-1 UNet
+    (frames-major), and the VAE and CLIP that both stages share."""
     t0 = time.perf_counter()
-    with torch.device(DEVICE):
-        models = {
-            "unet": UNetSpatioTemporalConditionModel(UNET_CONFIG),
-            "ctrl": ControlNetSpatioTemporal(UNET_CONFIG),
-            "vae": AutoencoderKLTemporalDecoder(VAE_CONFIG),
-            "clip": CLIPVisionModelWithProjection(CLIP_CONFIG),
-            "unet1": UNetSpatioTemporalConditionModel(UNET_CONFIG, temporal_layout="frames_major"),
-        }
-    n_params = 0
-    for seed, (key, m) in enumerate(models.items(), start=100):
-        init_random_(m, seed)
-        models[key] = m.to(torch.bfloat16).eval().requires_grad_(False)
-        n_params += sum(p.numel() for p in m.parameters())
+    models = bench.build_models(DEVICE)
+    n_params = sum(p.numel() for m in models.values() for p in m.parameters())
     torch.cuda.synchronize()
     print(f"[models] {n_params / 1e9:.3f} B params in bf16 on the card, "
           f"built in {time.perf_counter() - t0:.1f} s", flush=True)
     return models
-
-
-def set_temporal_layout(nets, layout: str) -> None:
-    for net in nets:
-        for m in net.modules():
-            if isinstance(m, TransformerSpatioTemporalModel):
-                m.temporal_layout = layout
 
 
 def count_modules(net, cls) -> int:
@@ -1078,22 +1048,8 @@ def expected_launches(models, forwards: dict, temporal: dict, k6: bool = True) -
 def make_step(models):
     """A full-width ControlNet+UNet denoise step on seeded inputs (CFG batch
     2 x 25 frames), as a closure, and its latent height and width."""
-    gen = torch.Generator(device=DEVICE).manual_seed(3)
-    ucfg = models["unet"].config
     h, w = H // VAE_CONFIG.spatial_scale, W // VAE_CONFIG.spatial_scale
-    lat = torch.randn((2, FRAMES, h, w, ucfg.in_channels), generator=gen, device=DEVICE)
-    cond = torch.randn((2, FRAMES, h, w, 4), generator=gen, device=DEVICE)
-    emb = torch.randn((2, 1, ucfg.cross_attention_dim), generator=gen, device=DEVICE)
-    tids = torch.tensor([[6.0, 127.0, 0.02]] * 2, device=DEVICE)
-    t = torch.tensor(0.25 * np.log(10.0), device=DEVICE)
-
-    @torch.no_grad()
-    def step():
-        down, mid = models["ctrl"](lat, t, emb, tids, cond)
-        return models["unet"](lat, t, emb, tids, down_block_additional_residuals=down,
-                              mid_block_additional_residuals=mid).float()
-
-    return step, h, w
+    return profile_denoise.make_step(models["ctrl"], models["unet"], DEVICE, FRAMES, h, w), h, w
 
 
 # [step]'s variants that force K4's paths (each where it can take the shape)
@@ -1114,7 +1070,7 @@ def phase_step(models) -> None:
         if variant.startswith("K4 ") and variant != "K4 off":
             with forced_k4_path(K4_FORCED[variant]):
                 return run("all kernels", fn)
-        set_temporal_layout(nets, "seq" if variant == "K3 off" else "frames_major")
+        bench.set_temporal_layout(nets, "seq" if variant == "K3 off" else "frames_major")
         group_norm.set_fused_group_norm(variant != "K4 off")
         layer_norm.set_fused_layer_norm(variant != "K5 off")
         attention.set_attention_impl("xla" if variant == "K8 off" else "auto")
@@ -1126,7 +1082,7 @@ def phase_step(models) -> None:
                     return fn()
             return fn()
         finally:
-            set_temporal_layout(nets, "seq")
+            bench.set_temporal_layout(nets, "seq")
             group_norm.set_fused_group_norm(True)
             layer_norm.set_fused_layer_norm(True)
             attention.set_attention_impl("auto")
@@ -1208,7 +1164,7 @@ def phase_small_reference() -> None:
         "unet1": UNetSpatioTemporalConditionModel(SMALL_UNET, temporal_layout="frames_major"),
     }
     for seed, m in enumerate(cpu.values(), start=10):
-        init_random_(m, seed)
+        bench.init_random_(m, seed)
         m.eval()
     card = {k: copy.deepcopy(m).to(DEVICE, torch.bfloat16) for k, m in cpu.items()}
     rng = np.random.default_rng(5)
@@ -1283,29 +1239,8 @@ def phase_small_reference() -> None:
 
 
 def synthetic_request(seed: int):
-    """A first frame and 25 bbox frames in [-1, 1], drawn with numpy: three
-    boxes moving across a dark frame, outlined in their own colours."""
-    rng = np.random.default_rng(seed)
-    frames = np.full((FRAMES, H, W, 3), -1.0, np.float32)
-    for _ in range(3):
-        bw, bh = rng.uniform(W / 12, W / 4), rng.uniform(H / 10, H / 4)
-        x0, y0 = rng.uniform(0, W - bw), rng.uniform(0, H - bh)
-        dx, dy = rng.uniform(-W, W) / 150, rng.uniform(-H, H) / 150
-        colour = rng.uniform(-0.5, 1.0, size=3).astype(np.float32)
-        for f in range(FRAMES):
-            x1 = int(np.clip(x0 + dx * f, 0, W - bw - 1))
-            y1 = int(np.clip(y0 + dy * f, 0, H - bh - 1))
-            x2, y2 = x1 + int(bw), y1 + int(bh)
-            frames[f, y1:y2, x1:x1 + 2] = colour
-            frames[f, y1:y2, x2 - 2:x2] = colour
-            frames[f, y1:y1 + 2, x1:x2] = colour
-            frames[f, y2 - 2:y2, x1:x2] = colour
-    yy, xx = np.mgrid[0:H, 0:W].astype(np.float32)
-    phase = rng.uniform(0, 2 * np.pi, size=3)
-    image = np.stack(
-        [np.sin(xx / 37.0 + phase[c]) * np.cos(yy / 23.0 - phase[c]) for c in range(3)], -1
-    ).astype(np.float32) * 0.8
-    return torch.from_numpy(image[None]), torch.from_numpy(frames[None])
+    """A first frame and 25 bbox frames in [-1, 1] (``tools.bench.synthetic_request``)."""
+    return bench.synthetic_request(seed, FRAMES, H, W)
 
 
 def check_clip(name: str, out, shape) -> None:
@@ -1941,7 +1876,7 @@ def write_random_checkpoint(ckpt: str):
                    "vae": AutoencoderKLTemporalDecoder(VAE_CONFIG),
                    "clip": CLIPVisionModelWithProjection(CLIP_CONFIG)}
     for seed, (key, m) in enumerate(written.items(), start=200):
-        init_random_(m, seed)
+        bench.init_random_(m, seed)
         written[key] = m.to(torch.bfloat16).eval()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -2649,35 +2584,136 @@ def phase_eval_metrics(card: str, ckpt: str) -> dict:
         shutil.rmtree(root, ignore_errors=True)
 
 
-# Kinds of device kernel by a word of the name torch.profiler reports; the
-# first kind with a match wins.
-KERNEL_KINDS = (
-    ("K2 + K3 (small_mha.cu)", ("small_mha_fwd_kernel",)),
-    ("K1 + K8 (mha.cu)", ("mha_fwd_kernel",)),
-    ("K7 (resblock.cu)", ("namespace)::conv_kernel", "namespace)::gn_sums_kernel",
-                          "namespace)::relayout_kernel")),
-    ("K4 (group_norm.cu)", ("namespace)::gn_",)),
-    ("K5 (layer_norm.cu)", ("namespace)::ln_",)),
-    ("K6 (geglu_ff.cu)", ("geglu_ff_kernel",)),
-    ("cuDNN NCHW<->NHWC transforms", ("nchwToNhwc", "nhwcToNchw")),
-    ("convolutions (cuDNN)", ("cudnn", "implicit_gemm", "conv")),
-    ("matmuls (cuBLAS)", ("nvjet", "gemm", "cutlass")),
-    ("copies and casts", ("copy", "Memcpy", "CatArray")),
-    ("softmax and reductions", ("softmax", "reduce")),
-    ("elementwise (adds, muls, gelu, SiLU)", ("elementwise",)),
+# [bench]: the measurement tools, each a process of its own with its time limit in seconds
+BENCH_RUNS = (
+    ("bench", ("--workload", "overall", "--runs", "3"), 400),
+    ("bench_train", ("--regime", "controlnet,lora,full", "--accum", "5", "--measure_steps", "1"),
+     500),
+    ("profile_denoise", ("--steps", "2", "--top", "12"), 300),
 )
+BENCH_METRICS = ("box2video_25f_512x320_sec_per_clip",
+                 "overall_request_25f_512x320_sec_per_request")
+# TFLOP of a Box2Video clip at the SVD-XT widths by tools/flops.py, as tests/test_torch_bench.py
+# pins it (to 0.1 %)
+CLIP_TFLOP, CLIP_TFLOP_TOL = 1308.882, 1e-3
+BENCH_DETAIL = ("steps", "runs", "times_s", "min_s", "spread", "init_s", "build_s", "warmup_s",
+                "peak_gib", "launches", "tflop_per_clip", "mfu", "temporal_layout", "device")
+OVERALL_DETAIL = ("runs", "times_s", "stage1_s", "stage2_s", "select_s", "init_s", "build_s",
+                  "peak_gib", "launches", "tflop_per_request", "mfu", "device")
+TRAIN_KEYS = ("regime", "attention_impl", "accum", "device", "sec_per_micro_step",
+              "sec_per_micro_step_min", "sec_per_micro_step_spread", "sec_per_opt_step", "mfu",
+              "tflop_per_micro_step", "trainable_params_m", "loss_first_step", "init_s",
+              "peak_gib", "f32_masters", "launches")
+PROFILE_KEYS = ("steps", "wall_ms_per_step", "ms_per_step", "calls_per_step", "by_kind", "top",
+                "device")
+
+
+def all_finite(value) -> bool:
+    """Every number in ``value`` (nested dicts and lists) is finite; None is not a number."""
+    if isinstance(value, dict):
+        return all(all_finite(v) for v in value.values())
+    if isinstance(value, (list, tuple)):
+        return all(all_finite(v) for v in value)
+    if isinstance(value, (bool, str)):
+        return True
+    return isinstance(value, (int, float)) and np.isfinite(value)
+
+
+def check_line(name: str, line: dict, keys, mfu) -> None:
+    missing = [k for k in keys if line.get(k) is None]
+    if missing or not all_finite({k: line[k] for k in keys}):
+        fail(f"{name}: keys missing {missing} or values not finite in {line}")
+    if mfu is not None and not 0.0 < mfu < 1.0:
+        fail(f"{name}: mfu {mfu}")
+
+
+def run_tool(name: str, args, timeout: int) -> tuple:
+    """``python -m ctrlv_tpu_torch.tools.<name> <args>`` from the repository:
+    (its JSON lines, seconds). Fails on a non-zero exit or on the time limit,
+    at which the process is killed."""
+    cmd = [sys.executable, "-m", f"ctrlv_tpu_torch.tools.{name}", *args]
+    t0 = time.perf_counter()
+    try:
+        proc = subprocess.run(cmd, cwd=os.path.dirname(os.path.abspath(__file__)),
+                              capture_output=True, text=True, timeout=timeout)
+    except subprocess.TimeoutExpired:
+        fail(f"tools.{name} ran past its {timeout} s")
+    secs = time.perf_counter() - t0
+    if proc.returncode != 0:
+        print(proc.stdout[-6000:], flush=True)
+        print(proc.stderr[-6000:], file=sys.stderr, flush=True)
+        fail(f"tools.{name} {' '.join(args)} exited {proc.returncode}")
+    return [json.loads(x) for x in proc.stdout.splitlines() if x.startswith("{")], secs
+
+
+def phase_bench(card: str, paths: dict) -> None:
+    """The measurement tools as a user runs them, each in a process of its own
+    while this one holds no model: ``tools.bench --workload overall`` (its
+    Box2Video line, median of 3 runs, and its overall line), ``tools.bench_train``
+    (ControlNet, LoRA and full finetune at accumulation 5, one timed update
+    each) and ``tools.profile_denoise`` (2 steps). Every line must hold its
+    keys with finite values and an MFU in (0, 1); a clip's launches must be
+    [sampler]'s and a request's [overall]'s, and a clip's FLOPs the count the
+    CPU test pins."""
+    t_phase = time.perf_counter()
+    out = {}
+    for name, args, timeout in BENCH_RUNS:
+        out[name], secs = run_tool(name, args, timeout)
+        for line in out[name]:
+            print(f"[bench] tools.{name}: {json.dumps(line)}", flush=True)
+        print(f"[bench] tools.{name} {' '.join(args)}: {len(out[name])} lines in {secs:.1f} s; "
+              f"card {card}", flush=True)
+
+    lines = {line.get("metric"): line for line in out["bench"]}
+    clip, request = (lines.get(name) for name in BENCH_METRICS)
+    if clip is None or request is None or len(lines) != 2:
+        fail(f"tools.bench printed the metrics {sorted(map(str, lines))}")
+    for line, detail in ((clip, BENCH_DETAIL), (request, OVERALL_DETAIL)):
+        check_line(line["metric"], line, ("metric", "value", "unit"), None)
+        check_line(line["metric"], line["detail"], detail, line["detail"]["mfu"])
+        if line["value"] != float(np.median(line["detail"]["times_s"])):
+            fail(f"{line['metric']}: value {line['value']} is not the median of the runs")
+    if not all_finite(clip["vs_baseline"]) or clip["detail"]["runs"] != 3:
+        fail(f"the Box2Video line: vs_baseline {clip['vs_baseline']}, runs "
+             f"{clip['detail']['runs']}")
+    check_launches("tools.bench's Box2Video clip", clip["detail"]["launches"], paths["box2video"])
+    check_launches("tools.bench's overall request", request["detail"]["launches"],
+                   paths["overall"])
+    tflop = clip["detail"]["tflop_per_clip"]
+    if abs(tflop - CLIP_TFLOP) > CLIP_TFLOP_TOL * CLIP_TFLOP:
+        fail(f"tools.bench counts {tflop} TFLOP a clip, the test pins {CLIP_TFLOP}")
+
+    regimes = [line.get("regime") for line in out["bench_train"]]
+    if regimes != ["controlnet", "lora", "full"]:
+        fail(f"tools.bench_train printed the regimes {regimes}")
+    for line in out["bench_train"]:
+        if "error" in line:
+            fail(f"tools.bench_train {line['regime']}: {line['error']}")
+        check_line(f"tools.bench_train {line['regime']}", line, TRAIN_KEYS, line["mfu"])
+        if line["accum"] != 5 or len(line["micro_steps_s"]) != 5:
+            fail(f"tools.bench_train {line['regime']}: accum {line['accum']}, "
+                 f"{len(line['micro_steps_s'])} timed micro-steps")
+
+    if len(out["profile_denoise"]) != 1:
+        fail(f"tools.profile_denoise printed {len(out['profile_denoise'])} JSON lines")
+    prof = out["profile_denoise"][0]
+    check_line("tools.profile_denoise", prof, PROFILE_KEYS, None)
+    if prof["clock"] != "cuda" or not prof["ms_per_step"] > 0 or not prof["top"]:
+        fail(f"tools.profile_denoise read no device time: {prof['clock']}, {prof['ms_per_step']}")
+    print(f"[bench] checks passed: keys, finite values, mfu in (0, 1), launches against "
+          f"[sampler] and [overall], {tflop:.3f} TFLOP a clip (pinned {CLIP_TFLOP}); phase "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
 
 
 @torch.no_grad()
 def profile_step(models, card: str, out_dir: str) -> None:
     """A reading, not a check: the device time of one ControlNet+UNet step by
-    kind of kernel (torch.profiler), with K7 off and on in turns (off, on, on,
-    off; K6 on, its default), then K6 off and on the same way (K7 off); the
-    tables by kernel go to ``out_dir``/step_profile_{k7,k6}_{off,on}.txt."""
-    from torch.profiler import ProfilerActivity, profile
-
+    kind of kernel and by kernel (``tools.profile_denoise``), with K7 off and
+    on in turns (off, on, on, off; K6 on, its default), then K6 off and on the
+    same way (K7 off); the tables by kernel go to
+    ``out_dir``/step_profile_{k7,k6}_{off,on}.txt."""
     step, _, _ = make_step(models)
-    set_temporal_layout((models["ctrl"], models["unet"]), "frames_major")
+    bench.set_temporal_layout((models["ctrl"], models["unet"]), "frames_major")
     step_device_ms = {}
     os.makedirs(out_dir, exist_ok=True)
     for variant in ("K7 off", "K7 on", "K7 on", "K7 off", "K6 off", "K6 on", "K6 on", "K6 off"):
@@ -2686,30 +2722,17 @@ def profile_step(models, card: str, out_dir: str) -> None:
             geglu_ff.set_fused_geglu_ff(variant == "K6 on")
         try:
             ms = cuda_time_ms(step, reps=3, warmup=2)
-            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-                step()
-                torch.cuda.synchronize()
+            table, prof = profile_denoise.profile_steps(step, 1, torch.device(DEVICE))
         finally:
             resblock.set_fused_resblock(False)
             geglu_ff.set_fused_geglu_ff(True)
-        by_kind, total, n_kernels = {}, 0.0, 0
-        for evt in prof.key_averages():
-            if evt.device_type != torch.autograd.DeviceType.CUDA:
-                continue
-            us = evt.self_device_time_total
-            kind = next((k for k, words in KERNEL_KINDS if any(w in evt.key for w in words)),
-                        "other")
-            by_kind[kind] = by_kind.get(kind, 0.0) + us
-            total += us
-            n_kernels += evt.count
-        if total <= 0:
+        if table["clock"] != "cuda" or table["total_ms"] <= 0:
             fail("the profiler recorded no device time")
-        step_device_ms.setdefault(variant, []).append(total / 1e3)
+        step_device_ms.setdefault(variant, []).append(table["total_ms"])
         print(f"[profile] one step, all kernels, frames-major, {variant}: {ms:.1f} ms by CUDA "
-              f"events; {n_kernels} device kernels, {total / 1e3:.1f} ms of device time; "
-              f"card {card}")
-        for kind, us in sorted(by_kind.items(), key=lambda kv: -kv[1]):
-            print(f"[profile]   {kind}: {us / 1e3:.1f} ms, {100 * us / total:.1f} %")
+              f"events; {table['calls']:.0f} device kernels, {table['total_ms']:.1f} ms of "
+              f"device time; card {card}")
+        profile_denoise.print_table(table, top=12, tag="[profile] ")
         name = f"step_profile_{variant.split()[0].lower()}_{variant.split()[1]}.txt"
         with open(os.path.join(out_dir, name), "w") as fh:
             fh.write(prof.key_averages().table(sort_by="self_cuda_time_total", row_limit=80,
@@ -2741,6 +2764,7 @@ def main() -> None:
     paths["train_svd"] = phase_train_svd(models, card)
     del models
     torch.cuda.empty_cache()
+    phase_bench(card, paths)  # the tools' own processes: this one holds no model now
     # one seeded bf16 checkpoint, written by [eval], for the three command phases:
     # the card's machine charges every byte written to its disk against a limit
     os.makedirs(BUILD_DIR, exist_ok=True)

@@ -259,7 +259,9 @@ def test_import_leaves_jax_and_flax_out():
         "ctrlv_tpu_torch.metrics.lpips, ctrlv_tpu_torch.metrics.fvd, "
         "ctrlv_tpu_torch.metrics.offline_eval, ctrlv_tpu_torch.utils.resize, "
         "ctrlv_tpu_torch.tools.eval_video_bbox_prediction, "
-        "ctrlv_tpu_torch.tools.eval_video_generation; "
+        "ctrlv_tpu_torch.tools.eval_video_generation, ctrlv_tpu_torch.utils.profiling, "
+        "ctrlv_tpu_torch.tools.flops, ctrlv_tpu_torch.tools.bench, "
+        "ctrlv_tpu_torch.tools.bench_train, ctrlv_tpu_torch.tools.profile_denoise; "
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'ctrlv_tpu', 'safetensors')); "
         "print(bad); sys.exit(1 if bad else 0)"
