@@ -4,9 +4,9 @@
 
 Drives the port's two serving paths, its ControlNet and stage-1 training
 steps, its overall-eval entry point, its three trainer entry points, its
-evaluation-metric commands and its measurement tools at the full SVD-XT
-width with seeded random bf16 weights, through its eight hand-written CUDA
-kernels:
+evaluation-metric commands, its measurement tools and its teaser and data
+commands at the full SVD-XT width with seeded random bf16 weights, through
+its eight hand-written CUDA kernels:
 
 1. device: the card's name and power limit, torch and CUDA versions, the
    TF32 switches;
@@ -119,7 +119,18 @@ kernels:
    ``tools.profile_denoise --steps 2``. Each JSON line is printed; every one
    must hold its keys with finite values and an MFU in (0, 1), the Box2Video
    clip's launches must be [sampler]'s and the overall request's [overall]'s,
-   and a clip's FLOPs the count that tests/test_torch_bench.py pins.
+   and a clip's FLOPs the count that tests/test_torch_bench.py pins;
+14. teaser: after [eval_metrics], on a nuScenes tree the phase writes (one
+   scene of 49 CAM_FRONT JPEGs at 1600x900 and 12 Hz with five moving
+   instances: one validation clip of 25 frames at 7 Hz) and a small DAVIS
+   tree: tools.preprocess_dataset (25 box frames at 512x320, by token),
+   tools.dataset_examples (synthetic and DAVIS present, their batches on
+   the card), then tools.draw_teaser on models its build_models loads from
+   [eval]'s checkpoint: three overall requests (seeds 9, 10, 11; 30 + 25
+   steps, decode chunk 8, two loader workers), each request's launches
+   [eval]'s, its GIFs, overlays and 1600x900 ground-truth plots checked;
+   s/request, the loader's first wait, a clip's host seconds, export and
+   plot seconds and peak memory printed.
 
 ``python3 chip_smoke.py --profile [DIR]`` instead builds the models and
 prints one step's device time by kind of kernel and by kernel
@@ -143,6 +154,7 @@ import contextlib
 import copy
 import dataclasses
 import json
+import math
 import os
 import re
 import shutil
@@ -2584,6 +2596,253 @@ def phase_eval_metrics(card: str, ckpt: str) -> dict:
         shutil.rmtree(root, ignore_errors=True)
 
 
+# [teaser]: 12 Hz CAM_FRONT frames of the one nuScenes scene (every second one
+# is kept at 7 Hz: 25 frames, one validation clip), keyframes every sixth, the
+# real CAM_FRONT intrinsics (1600x900); the teaser tool's seeds a clip
+TEASER_RAW_FRAMES, TEASER_KEY_EVERY, TEASER_SEEDS = 49, 6, 3
+NUSC_INTRINSIC = [[1266.417, 0.0, 816.267], [0.0, 1266.417, 491.507], [0.0, 0.0, 1.0]]
+# instance: (category, size w l h, centre (x, y, z) at keyframe 0, its velocity
+# a keyframe, yaw a keyframe in radians, the keyframes it is annotated at)
+NUSC_INSTANCES = {
+    "car_a": ("vehicle.car", (1.9, 4.6, 1.6), (-3.0, 1.0, 14.0), (0.4, 0.0, 2.5), 0.05, range(9)),
+    "car_b": ("vehicle.car", (1.8, 4.3, 1.5), (4.0, 1.0, 30.0), (-0.2, 0.0, -1.5), 0.0, range(9)),
+    "truck": ("vehicle.truck", (2.5, 8.0, 3.2), (9.0, 0.5, 40.0), (0.0, 0.0, -2.0), -0.02,
+              range(2, 9)),
+    "ped": ("human.pedestrian.adult", (0.6, 0.7, 1.8), (-6.0, 1.0, 12.0), (0.3, 0.0, 0.0), 0.0,
+            range(0, 6)),
+    "cone": ("movable_object.trafficcone", (0.4, 0.4, 0.8), (2.5, 1.5, 9.0), (0.0, 0.0, 0.0), 0.0,
+             range(9)),
+}
+
+
+def write_nuscenes_tree(root: str, raw_frames: int = TEASER_RAW_FRAMES) -> None:
+    """A nuScenes v1.0-trainval tree under ``root/nuscenes``: one scene of
+    ``raw_frames`` CAM_FRONT JPEGs at 1600x900 and 12 Hz, keyframes at 2 Hz,
+    the sweeps between them pointing at the next keyframe, identity ego and
+    sensor poses, the real CAM_FRONT intrinsics, and the NUSC_INSTANCES moving
+    and turning from keyframe to keyframe; the scene in both the train and the
+    val split (``splits.json``)."""
+    from PIL import Image
+
+    base = os.path.join(root, "nuscenes")
+    tdir, idir = os.path.join(base, "v1.0-trainval"), os.path.join(base, "samples", "CAM_FRONT")
+    os.makedirs(tdir)
+    os.makedirs(idir)
+    ident = [1.0, 0.0, 0.0, 0.0]
+    keys = list(range(0, raw_frames, TEASER_KEY_EVERY))
+    samples = [f"s{k}" for k in range(len(keys))]
+    tables = dict(
+        sensor=[dict(token="cam", channel="CAM_FRONT", modality="camera")],
+        calibrated_sensor=[dict(token="cs", sensor_token="cam", translation=[0.0, 0.0, 0.0],
+                                rotation=ident, camera_intrinsic=NUSC_INTRINSIC)],
+        scene=[dict(token="scene", name="scene-0001", first_sample_token=samples[0],
+                    last_sample_token=samples[-1], nbr_samples=len(samples), description="",
+                    log_token="")],
+        sample=[dict(token=tok, timestamp=keys[k] * 83_333, scene_token="scene",
+                     prev=samples[k - 1] if k else "",
+                     next=samples[k + 1] if k + 1 < len(samples) else "")
+                for k, tok in enumerate(samples)],
+        category=[], instance=[], sample_annotation=[], sample_data=[], ego_pose=[],
+    )
+    for name, (cat, size, c0, vel, yaw, at) in NUSC_INSTANCES.items():
+        tables["category"].append(dict(token=f"cat_{name}", name=cat, description=""))
+        tables["instance"].append(dict(token=name, category_token=f"cat_{name}"))
+        for k in at:
+            theta = yaw * k
+            tables["sample_annotation"].append(dict(
+                token=f"{name}_{k}", sample_token=samples[k], instance_token=name,
+                visibility_token="4", attribute_tokens=[], size=list(size),
+                translation=[c + v * k for c, v in zip(c0, vel)],
+                rotation=[math.cos(theta / 2), 0.0, math.sin(theta / 2), 0.0],
+                prev="", next="", num_lidar_pts=1, num_radar_pts=1))
+    ys, xs = np.mgrid[0:900, 0:1600]
+    for i in range(raw_frames):
+        k = min(-(-i // TEASER_KEY_EVERY), len(samples) - 1)  # a sweep's next keyframe
+        ts = i * 83_333
+        fname = f"samples/CAM_FRONT/f{i:03d}.jpg"
+        img = np.stack([(xs + 7 * i) % 256, ys * 255 // 900, np.full_like(xs, 60 + i)], -1)
+        img[400:600, 200 + 10 * i:500 + 10 * i] = (200, 40, 40)
+        Image.fromarray(img.astype(np.uint8)).save(os.path.join(base, fname), quality=90)
+        tables["ego_pose"].append(dict(token=f"ego{i}", timestamp=ts, rotation=ident,
+                                       translation=[0.0, 0.0, 0.0]))
+        tables["sample_data"].append(dict(
+            token=f"sd{i}", sample_token=samples[k], ego_pose_token=f"ego{i}",
+            calibrated_sensor_token="cs", timestamp=ts, fileformat="jpg",
+            is_key_frame=i % TEASER_KEY_EVERY == 0, height=900, width=1600, filename=fname,
+            prev=f"sd{i - 1}" if i else "", next=f"sd{i + 1}" if i + 1 < raw_frames else ""))
+    for name, records in tables.items():
+        with open(os.path.join(tdir, f"{name}.json"), "w") as f:
+            json.dump(records, f)
+    with open(os.path.join(tdir, "splits.json"), "w") as f:
+        json.dump({"train": ["scene-0001"], "val": ["scene-0001"], "test": []}, f)
+
+
+def write_davis_tree(root: str, frames: int = 8) -> None:
+    """A DAVIS 2017 tree under ``root/DAVIS``: two 480p sequences of
+    ``frames`` JPEGs at 854x480, the first with indexed masks of two objects
+    (one moving), both in the train split."""
+    from PIL import Image
+
+    for seq in ("bear", "boat"):
+        img_dir = os.path.join(root, "DAVIS", "JPEGImages", "480p", seq)
+        ann_dir = os.path.join(root, "DAVIS", "Annotations", "480p", seq)
+        os.makedirs(img_dir)
+        os.makedirs(ann_dir)
+        for i in range(frames):
+            Image.new("RGB", (854, 480), (10, 120 + 10 * i, 60)).save(
+                os.path.join(img_dir, f"{i:05d}.jpg"))
+            if seq == "bear":
+                mask = np.zeros((480, 854), np.uint8)
+                mask[100:300, 200 + 20 * i:500 + 20 * i] = 1
+                mask[350:450, 50:250] = 2
+                Image.fromarray(mask, mode="L").save(os.path.join(ann_dir, f"{i:05d}.png"))
+    sets = os.path.join(root, "DAVIS", "ImageSets", "2017")
+    os.makedirs(sets)
+    with open(os.path.join(sets, "train.txt"), "w") as f:
+        f.write("bear\nboat\n")
+
+
+def phase_teaser(card: str, overall: dict, ckpt: str) -> dict:
+    """The data tools and the teaser tool on a nuScenes tree and a DAVIS tree
+    this phase writes (``write_nuscenes_tree``, ``write_davis_tree``):
+
+    1. ``tools.preprocess_dataset`` over the nuScenes tree: each of the 25
+       training frames' ``my_render_3d_style`` box image at 512x320, by token;
+    2. ``tools.dataset_examples`` over the tree: one batch of each present
+       dataset (synthetic, DAVIS) on the card, the rest unavailable;
+    3. ``tools.draw_teaser.main`` over the nuScenes validation clip (25 frames
+       at 512x320, 30 + 25 steps, decode chunk 8, two loader workers) on the
+       models its ``build_models`` loads from the seeded random bf16
+       checkpoint ``[eval]`` wrote into ``ckpt``: three overall requests, each
+       request's launches checked against ``[eval]``'s, the files it writes,
+       and its ground-truth plots at 900x1600 (white: a nuScenes sample
+       carries no calibration and the 2D boxes are BDD100K's, in both
+       packages), then the same plots with the 2D boxes drawn, whose last
+       must differ from the first.
+
+    Prints s/request, the loader's first wait and an item's host seconds,
+    the export and plot seconds and peak memory; returns the launches of the
+    three requests."""
+    from ctrlv_tpu_torch.data import build_dataset, collate_clip_batch
+    from ctrlv_tpu_torch.tools import dataset_examples, draw_teaser, preprocess_dataset
+    from ctrlv_tpu_torch.utils.misc import render_gt_3d_bbox_plots
+    from ctrlv_tpu_torch.utils.video_io import load_video
+    from PIL import Image
+
+    t_phase = time.perf_counter()
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    root = tempfile.mkdtemp(prefix="teaser_", dir=BUILD_DIR)
+    try:
+        t0 = time.perf_counter()
+        write_nuscenes_tree(root)
+        write_davis_tree(root)
+        print(f"[teaser] nuScenes tree ({TEASER_RAW_FRAMES} CAM_FRONT JPEGs at 1600x900, 12 Hz, "
+              f"{len(NUSC_INSTANCES)} instances) and DAVIS tree written in "
+              f"{time.perf_counter() - t0:.3f} s", flush=True)
+        cfg = Config(dataset_name="nuscenes", data_root=root, clip_length=FRAMES, train_H=H,
+                     train_W=W, pretrained_model_name_or_path=ckpt, device=DEVICE,
+                     dataloader_num_workers=EVAL_WORKERS, num_inference_steps=STAGE2_STEPS,
+                     decode_chunk_size=CHUNK, seed=9, output_dir=os.path.join(root, "out"))
+
+        t0 = time.perf_counter()
+        n = preprocess_dataset.main(cfg)
+        pre_s = time.perf_counter() - t0
+        pngs = sorted(os.listdir(os.path.join(cfg.output_dir, "bbox_frames")))
+        if n != (TEASER_RAW_FRAMES + 1) // 2 or len(pngs) != n:  # every second frame at 7 Hz
+            fail(f"tools.preprocess_dataset drew {n} frames and wrote {len(pngs)}")
+        frame = np.asarray(Image.open(os.path.join(cfg.output_dir, "bbox_frames", pngs[0])))
+        if frame.shape != (H, W, 3) or not (frame > 0).any():
+            fail(f"a preprocessed box frame: shape {frame.shape}, drawn {(frame > 0).any()}")
+        print(f"[teaser] tools.preprocess_dataset: {n} nuScenes box frames at {W}x{H} in "
+              f"{pre_s:.3f} s", flush=True)
+
+        t0 = time.perf_counter()
+        lines = dataset_examples.main(cfg)
+        ex_s = time.perf_counter() - t0
+        present = {line.split(":")[0] for line in lines if " samples, clips=" in line}
+        if present != {"synthetic", "davis"} or len(lines) != 6:
+            fail(f"tools.dataset_examples found {sorted(present)}: {lines}")
+        print(f"[teaser] tools.dataset_examples: {len(lines)} lines in {ex_s:.3f} s", flush=True)
+
+        # an item's host seconds in this process, beside the loader's first wait
+        ds = build_dataset("nuscenes", root, False, clip_length=FRAMES, if_return_bbox_im=True,
+                           train_H=H, train_W=W)
+        t0 = time.perf_counter()
+        item = ds[0]
+        item_s = time.perf_counter() - t0
+        if len(ds) != 1 or item["bbox_images"].shape != (FRAMES, H, W, 3):
+            fail(f"the nuScenes validation split holds {len(ds)} clips")
+
+        sums = []  # a video's sum a seed: the seeds must give different videos
+
+        def check(res):
+            check_clip("the teaser video", res["video"], (FRAMES, H, W, 3))
+            check_clip("the teaser bbox video", res["bbox_video"], (FRAMES, H, W, 3))
+            if not (isinstance(res["miou"], float) and 0.0 <= res["miou"] <= 1.0):
+                fail(f"teaser miou {res['miou']}")
+            sums.append(float(np.asarray(res["video"], np.float64).sum()))
+
+        pipes = []
+
+        def checked_pipeline(models):
+            pipes.append(CheckedPipeline(eval_overall.make_pipeline(models), "teaser request",
+                                         eval_expected_launches(overall), check))
+            return pipes[-1]
+
+        _launch.reset_launch_counts()
+        t0 = time.perf_counter()
+        with patched(draw_teaser, make_pipeline=checked_pipeline):
+            records = draw_teaser.main(cfg)
+        secs = time.perf_counter() - t0
+        counts = dict(_launch.LAUNCHES)
+        if len(records) != 1 or len(records[0]["requests"]) != TEASER_SEEDS:
+            fail(f"the teaser tool answered {records}")
+        if len(set(sums)) != TEASER_SEEDS:
+            fail(f"the seeds' videos are not all different: sums {sums}")
+        rec = records[0]
+        overlays = range(0, FRAMES, max(FRAMES // 5, 1))
+        for req, (peak, _) in zip(rec["requests"], pipes[0].calls):
+            print(f"[teaser] request, seed {req['seed']}: {req['seconds']:.3f} s, export (two "
+                  f"GIFs, {len(overlays)} overlay PNGs) "
+                  f"{req['export_seconds']:.3f} s, miou {req['miou']:.4f}; max_memory_allocated "
+                  f"{peak:.2f} GiB; card {card}", flush=True)
+        print(f"[teaser] loader: first wait {rec['loader_wait_seconds']:.3f} s ({EVAL_WORKERS} "
+              f"spawn workers starting, then the clip), a nuScenes clip's host seconds in one "
+              f"process {item_s:.3f} s ({FRAMES} frames: labels, JPEG decode and resize, box "
+              f"frames); "
+              f"{rec['plots']} ground-truth plots at 1600x900 drawn and written in "
+              f"{rec['plot_seconds']:.3f} s", flush=True)
+
+        out = os.path.join(cfg.output_dir, "teaser")
+        for s in range(TEASER_SEEDS):
+            for name in (f"sample0_seed{s}.gif", f"sample0_seed{s}_bbox.gif"):
+                video = load_video(os.path.join(out, name))
+                if video.shape[1:] != (H, W, 3):
+                    fail(f"{name} has shape {video.shape}")
+            for f in overlays:
+                if not os.path.exists(os.path.join(out, f"sample0_seed{s}_frame{f}.png")):
+                    fail(f"sample0_seed{s}_frame{f}.png was not written")
+        plots = [np.asarray(Image.open(os.path.join(out, f"sample0_gt_3d_bbox_frame{f}.png")))
+                 for f in range(FRAMES)]
+        if any(p.shape != (900, 1600, 3) for p in plots) or not all((p == 255).all()
+                                                                    for p in plots):
+            fail("the nuScenes ground-truth plots are not white 900x1600 canvases")
+        objects = {k: v[0] for k, v in collate_clip_batch([item])["objects"].items()}
+        drawn = render_gt_3d_bbox_plots(objects, None, 900, 1600, plot_2d_bbox=True)
+        if np.array_equal(drawn[0], drawn[-1]) or (drawn[-1] == 1).all():
+            fail("the ground-truth plots with 2D boxes: the last equals the first")
+        print(f"[teaser] {TEASER_SEEDS} requests in {secs:.3f} s with the build and the loader; "
+              f"files checked: {2 * TEASER_SEEDS} GIFs, {TEASER_SEEDS * len(overlays)} overlays, "
+              f"{FRAMES} "
+              f"white 1600x900 plots (the same plots with the 2D boxes drawn: the last differs "
+              f"from the first); launches {counts}; phase {time.perf_counter() - t_phase:.1f} s",
+              flush=True)
+        return counts
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+        torch.cuda.empty_cache()
+
+
 # [bench]: the measurement tools, each a process of its own with its time limit in seconds
 BENCH_RUNS = (
     ("bench", ("--workload", "overall", "--runs", "3"), 400),
@@ -2741,38 +3000,52 @@ def profile_step(models, card: str, out_dir: str) -> None:
         f"{v} {', '.join(f'{x:.1f}' for x in xs)}" for v, xs in step_device_ms.items()), flush=True)
 
 
+PHASE_SECONDS: dict = {}  # wall seconds a phase, printed with [done]
+
+
+def timed_phase(name: str, fn, *args):
+    t0 = time.perf_counter()
+    try:
+        return fn(*args)
+    finally:
+        PHASE_SECONDS[name] = time.perf_counter() - t0
+
+
 def main() -> None:
     t_start = time.perf_counter()
     card = phase_device()
-    phase_build()
+    timed_phase("build", phase_build)
     if sys.argv[1:2] == ["--profile"] and len(sys.argv) <= 3:
         profile_step(build_models(), card, sys.argv[2] if len(sys.argv) == 3 else "output")
         return
     if sys.argv[1:]:
         fail(f"unknown arguments {sys.argv[1:]}")
-    kernels = phase_kernels()
-    phase_grads()
-    phase_small_reference()
+    kernels = timed_phase("kernels", phase_kernels)
+    timed_phase("grads", phase_grads)
+    timed_phase("small", phase_small_reference)
     models = build_models()
-    phase_step(models)
-    paths = {"box2video": phase_sampler(models, card), "overall": phase_overall(models, card)}
+    timed_phase("step", phase_step, models)
+    paths = {"box2video": timed_phase("sampler", phase_sampler, models, card),
+             "overall": timed_phase("overall", phase_overall, models, card)}
     del models["unet1"]  # the stage-1 UNet is not trained
     torch.cuda.empty_cache()
-    paths["train"] = phase_train(models, card)
+    paths["train"] = timed_phase("train", phase_train, models, card)
     del models["ctrl"]
     torch.cuda.empty_cache()
-    paths["train_svd"] = phase_train_svd(models, card)
+    paths["train_svd"] = timed_phase("train_svd", phase_train_svd, models, card)
     del models
     torch.cuda.empty_cache()
-    phase_bench(card, paths)  # the tools' own processes: this one holds no model now
-    # one seeded bf16 checkpoint, written by [eval], for the three command phases:
+    # the tools' own processes: this one holds no model now
+    timed_phase("bench", phase_bench, card, paths)
+    # one seeded bf16 checkpoint, written by [eval], for the four command phases:
     # the card's machine charges every byte written to its disk against a limit
     os.makedirs(BUILD_DIR, exist_ok=True)
     ckpt = tempfile.mkdtemp(prefix="checkpoint_", dir=BUILD_DIR)
     try:
-        paths["eval"] = phase_eval(card, paths["overall"], ckpt)
-        paths["train_cli"] = phase_train_cli(card, paths["train"], ckpt)
-        paths.update(phase_eval_metrics(card, ckpt))
+        paths["eval"] = timed_phase("eval", phase_eval, card, paths["overall"], ckpt)
+        paths["train_cli"] = timed_phase("train_cli", phase_train_cli, card, paths["train"], ckpt)
+        paths.update(timed_phase("eval_metrics", phase_eval_metrics, card, ckpt))
+        paths["teaser"] = timed_phase("teaser", phase_teaser, card, paths["overall"], ckpt)
     finally:
         shutil.rmtree(ckpt, ignore_errors=True)
 
@@ -2793,8 +3066,8 @@ def main() -> None:
             rows[-1].update(device_ms=float(np.mean(res["device_ms"])),
                             library_device_ms=float(np.mean(res["library_device_ms"])))
         # K1-K6 and K8 belong to the overall path, and all of them but K3 to the
-        # Box2Video, eval, training and eval-metric paths ("seq" layout); K7 to
-        # stage 1's training.
+        # Box2Video, eval, training, eval-metric and teaser paths ("seq" layout);
+        # K7 to stage 1's training.
         on = {"box2video": kind not in ("small_mha_fm", "resblock"),
               "overall": kind != "resblock",
               "eval": kind not in ("small_mha_fm", "resblock"),
@@ -2802,11 +3075,13 @@ def main() -> None:
               "train_svd": kind != "small_mha_fm",
               "train_cli": kind not in ("small_mha_fm", "resblock"),
               "eval_bbox": kind not in ("small_mha_fm", "resblock"),
-              "eval_gen": kind not in ("small_mha_fm", "resblock")}
+              "eval_gen": kind not in ("small_mha_fm", "resblock"),
+              "teaser": kind not in ("small_mha_fm", "resblock")}
         if any((paths[name][kind] > 0) != due for name, due in on.items()):
             fail(f"{kind} was not launched on its paths: {rows[-1]['launches_by_path']}")
     print_launches_by_shape()
-    print(f"[done] {time.perf_counter() - t_start:.1f} s")
+    print(f"[done] {time.perf_counter() - t_start:.1f} s; by phase (s): " + ", ".join(
+        f"{k} {v:.1f}" for k, v in PHASE_SECONDS.items()))
     print(card)  # name, power limit
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

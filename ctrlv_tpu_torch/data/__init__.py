@@ -1,8 +1,8 @@
 """The port's data path: datasets, collation and the loader.
 
-Counterpart of ``ctrlv_tpu/data`` for the synthetic, KITTI, Virtual KITTI,
-merged KITTI and BDD100K datasets (DAVIS and nuScenes are not ported yet). It imports neither JAX nor the
-JAX package; frames are drawn by the native C++ rasterizer.
+Counterpart of ``ctrlv_tpu/data``: the synthetic, KITTI, Virtual KITTI,
+merged KITTI, BDD100K, DAVIS and nuScenes datasets. It imports neither JAX
+nor the JAX package; frames are drawn by the native C++ rasterizer.
 """
 
 from .base import FrameLabel, VideoDataset
@@ -14,8 +14,10 @@ from .collate import (
     init_objects,
     objects_to_arrays,
 )
+from .davis import DAVISDataset
 from .kitti import KittiDataset
 from .loader import EpochShuffleSampler, build_dataset, get_dataloader
 from .mkitti import MergedKittiDataset
+from .nuscenes import NuScenesDataset
 from .synthetic import SyntheticDrivingDataset
 from .vkitti import VKittiDataset

@@ -64,13 +64,20 @@ def build_dataset(
         ds = BDD100KDataset(use_segmentation=use_segmentation, **common, **kwargs)
         ds.set_if_last_frame_trajectory(if_last_frame_traj)
         return ds
+    if name == "davis":
+        from .davis import DAVISDataset
+
+        return DAVISDataset(**common, **kwargs)
+    if name == "nuscenes":
+        from .nuscenes import NuScenesDataset
+
+        return NuScenesDataset(**common, **kwargs)
     if name == "synthetic":
         from .synthetic import SyntheticDrivingDataset
 
         common.pop("use_preplotted_bbox")
         return SyntheticDrivingDataset(**common, **kwargs)
-    raise NotImplementedError(
-        f"dataset {dset_name} is not in the port (davis and nuscenes are ROADMAP item 12)")
+    raise NotImplementedError(f"Dataset {dset_name} not implemented")
 
 
 class EpochShuffleSampler(Sampler):
@@ -133,6 +140,8 @@ def get_dataloader(
             f"{data_type}s — check --data_root (expected layout documented "
             f"in ctrlv_tpu_torch/data/{dset_name.lower()}.py)"
         )
+    if hasattr(dset, "tracks_in_index_order"):  # nuScenes: its workers number tracks in order
+        dset.tracks_in_index_order = not shuffle
     sampler = EpochShuffleSampler(len(dset), seed) if shuffle else SequentialSampler(dset)
     workers = dict(num_workers=num_workers, multiprocessing_context="spawn") if num_workers else {}
     loader = DataLoader(dset, batch_size=batch_size, sampler=sampler, drop_last=True,

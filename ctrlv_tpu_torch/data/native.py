@@ -1,8 +1,10 @@
 """ctypes binding of the native C++ rasterizer (``native/rasterizer.cpp``).
 
-The port's own copy of ``ctrlv_tpu/data/native.py``, for the two functions
+The port's own copy of ``ctrlv_tpu/data/native.py``, for the three functions
 the data path draws with: the conditioning frame of 3D wireframes and 2D
-boxes, and the trajectory frame. The library is built with ``make -C
+boxes (on a background where one is given: the teaser's white canvas), the
+nuScenes frame in the reference's ``my_render_3d_style``, and the trajectory
+frame. The library is built with ``make -C
 native`` (g++ only) when it is absent. Where it cannot be built or loaded,
 ``load_native`` raises: the port has no other rasterizer.
 """
@@ -16,6 +18,8 @@ import threading
 from typing import Optional
 
 import numpy as np
+
+from ..ops.rasterize import _HW_3DSTYLE_1, _HW_3DSTYLE_2
 
 _LIB: Optional[ctypes.CDLL] = None
 _LOCK = threading.Lock()
@@ -57,6 +61,12 @@ def load_native() -> ctypes.CDLL:
             ctypes.c_int, ctypes.c_float, ctypes.c_float,
         ]
         lib.rasterize_trajectory_native.restype = None
+        lib.rasterize_frame_3dstyle_native.argtypes = [
+            f32, ctypes.c_int, ctypes.c_int, f32, u8, f32, f32,
+            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float,
+            ctypes.c_float, ctypes.c_float,
+        ]
+        lib.rasterize_frame_3dstyle_native.restype = None
         _LIB = lib
         return lib
 
@@ -66,6 +76,14 @@ def _f32(a: np.ndarray, shape) -> np.ndarray:
     if a.shape != shape:
         raise ValueError(f"expected an array of shape {shape}, got {a.shape}")
     return a
+
+
+def _canvas(background: Optional[np.ndarray], height: int, width: int) -> np.ndarray:
+    """A fresh (height, width, 3) float32 canvas: a copy of ``background``,
+    else black."""
+    if background is None:
+        return np.zeros((height, width, 3), np.float32)
+    return _f32(background, (height, width, 3)).copy()
 
 
 def _fptr(a: np.ndarray):
@@ -84,19 +102,55 @@ def rasterize_frame_native(
     track_color: np.ndarray,  # (N, 3)
     height: int,
     width: int,
+    background: Optional[np.ndarray] = None,
     plot_2d_bbox: bool = True,
     alpha_2dbbox: float = 0.75,
 ) -> np.ndarray:
-    """One conditioning frame, (height, width, 3) float32 in [0, 1]."""
+    """One conditioning frame, (height, width, 3) float32 in [0, 1], drawn
+    over a copy of ``background`` (black where it is None)."""
     lib = load_native()
     n = np.shape(corners)[0]
     corners, bbox2d = _f32(corners, (n, 8, 2)), _f32(bbox2d, (n, 4))
     type_color, track_color = _f32(type_color, (n, 3)), _f32(track_color, (n, 3))
     valid = np.ascontiguousarray(valid, np.uint8).reshape(n)
-    img = np.zeros((height, width, 3), np.float32)
+    img = _canvas(background, height, width)
     lib.rasterize_frame_native(
         _fptr(img), height, width, _fptr(corners), _fptr(bbox2d), _u8ptr(valid),
         _fptr(type_color), _fptr(track_color), n, int(plot_2d_bbox), float(alpha_2dbbox),
+    )
+    return img
+
+
+def rasterize_frame_3dstyle_native(
+    corners: np.ndarray,  # (N, 8, 2) canvas coords
+    valid: np.ndarray,  # (N,) bool
+    outline_color: np.ndarray,  # (N, 3)
+    fill_color: np.ndarray,  # (N, 3)
+    height: int,
+    width: int,
+    show_3d: bool = False,
+    show_2d: bool = True,
+    alpha: float = 0.75,
+    background: Optional[np.ndarray] = None,
+    hw2: Optional[float] = None,
+    hw1: Optional[float] = None,
+) -> np.ndarray:
+    """One nuScenes frame as the reference's ``my_render_3d_style`` draws it,
+    (height, width, 3) float32 in [0, 1]: each box's 2D extent filled with its
+    fill colour at ``alpha`` (and, without ``show_3d``, its edge in the outline
+    colour), then, with ``show_3d``, opaque wireframes of band half-widths
+    ``hw2`` and ``hw1`` (pixels) over every fill."""
+    lib = load_native()
+    n = np.shape(corners)[0]
+    corners = _f32(corners, (n, 8, 2))
+    outline_color, fill_color = _f32(outline_color, (n, 3)), _f32(fill_color, (n, 3))
+    valid = np.ascontiguousarray(valid, np.uint8).reshape(n)
+    img = _canvas(background, height, width)
+    lib.rasterize_frame_3dstyle_native(
+        _fptr(img), height, width, _fptr(corners), _u8ptr(valid), _fptr(outline_color),
+        _fptr(fill_color), n, int(show_3d), int(show_2d), float(alpha),
+        float(_HW_3DSTYLE_2 if hw2 is None else hw2),
+        float(_HW_3DSTYLE_1 if hw1 is None else hw1),
     )
     return img
 

@@ -1,8 +1,8 @@
 """The bbox rasterizer's palette and projection, in numpy, for the data path.
 
 The port's copy of the host-side pieces of ``ctrlv_tpu/ops/rasterize.py``:
-the reference's type palette, the per-track colour hash and the 3D box
-projection. The frames themselves are drawn by the native C++ rasterizer
+the reference's type palette, the per-track colour hash, the 3D box
+projection and the band half-widths of the nuScenes frame. The frames themselves are drawn by the native C++ rasterizer
 (``ctrlv_tpu_torch/data/native.py``), which the JAX package's tests hold
 against its XLA rasterizer.
 """
@@ -29,6 +29,13 @@ TYPE_COLORS = np.asarray(
     ],
     dtype=np.float32,
 ) / 255.0
+
+
+# Band half-widths (pixels) of the nuScenes frame's lines at the final raster,
+# fitted against the reference's matplotlib figure: its lw-2 lines cover about
+# 2.5 pixels after the resize to 512 wide, its lw-1 lines about 1.
+_HW_3DSTYLE_2 = 1.2
+_HW_3DSTYLE_1 = 0.5
 
 
 def track_color(track_id) -> np.ndarray:

@@ -5,7 +5,8 @@ KITTI) and BDD100K trees the tests write (as tests/test_datasets_fixtures.py
 does, plus a KITTI calibration and BDD100K segmentation colormaps), give the
 same samples in both packages: clips, labels and conditioning frames equal
 bit for bit (both draw the frames with
-the native rasterizer). The trajectory frame is the one departure: the port
+the native rasterizer). DAVIS trees as tests/test_datasets_fixtures.py writes them give the
+same samples in train, val and image modes. The trajectory frame is the one departure: the port
 draws it with the native rasterizer, the JAX package with its XLA one, and
 they may differ on circle edges, under 0.2 % of the pixels (the rule of
 tests/test_native.py). Collated batches are equal; the loader's shuffled
@@ -58,7 +59,8 @@ def _assert_samples_equal(out, ref, trajectory: bool):
 
 
 def _both(name, root, **kw):
-    kw = dict(if_train=True, clip_length=CLIP, if_return_bbox_im=True, train_H=H, train_W=W, **kw)
+    kw = dict(dict(if_train=True, clip_length=CLIP, if_return_bbox_im=True, train_H=H, train_W=W),
+              **kw)
     return build_dataset(name, root, **kw), jax_build_dataset(name, root, **kw)
 
 
@@ -163,6 +165,54 @@ def test_collate_equals_jax(tmp_path):
         for k, v in exp["objects"].items():
             assert out["objects"][k].numpy().dtype == v.dtype, k
             np.testing.assert_array_equal(out["objects"][k].numpy(), v, err_msg=k)
+
+
+def _make_davis(root, n=6, split_file=True):
+    """The DAVIS tree of tests/test_datasets_fixtures.py: two objects whose
+    masks move across ``n`` frames, and a second sequence without masks."""
+    for seq in ("bear", "boat"):
+        img_dir = root / "DAVIS/JPEGImages/480p" / seq
+        img_dir.mkdir(parents=True)
+        for i in range(n):
+            Image.new("RGB", (96, 54), (10, 120 + 10 * i, 60)).save(img_dir / f"{i:05d}.jpg")
+    ann_dir = root / "DAVIS/Annotations/480p/bear"
+    ann_dir.mkdir(parents=True)
+    for i in range(n):
+        mask = np.zeros((54, 96), np.uint8)
+        mask[10:30, 20 + i: 50 + i] = 1  # object 1 moves right
+        mask[35:45, 5:25] = 2
+        Image.fromarray(mask, mode="L").save(ann_dir / f"{i:05d}.png")
+    if split_file:
+        sets_dir = root / "DAVIS/ImageSets/2017"
+        sets_dir.mkdir(parents=True)
+        (sets_dir / "train.txt").write_text("bear\n")
+        (sets_dir / "val.txt").write_text("boat\nbear\n")
+
+
+@pytest.mark.parametrize("mode", ["train", "val", "image", "no_split_file"])
+def test_davis_samples_equal_jax(tmp_path, mode):
+    from ctrlv_tpu.data.davis import masks_to_boxes as jax_masks_to_boxes
+    from ctrlv_tpu_torch.data import DAVISDataset
+    from ctrlv_tpu_torch.data.davis import masks_to_boxes
+
+    _make_davis(tmp_path, split_file=mode != "no_split_file")
+    kw = dict(if_train=mode != "val", data_type="image" if mode == "image" else "clip",
+              non_overlapping_clips=mode == "val")
+    ours, ref = _both("davis", str(tmp_path), **kw)
+    assert isinstance(ours, DAVISDataset) and len(ours) == len(ref) > 0
+    assert ours.image_list == ref.image_list and ours.clip_list == ref.clip_list
+    for i in range(len(ref)):
+        out, exp = ours[i], ref[i]
+        if mode == "image":
+            np.testing.assert_array_equal(out["clip"], exp["clip"])
+            assert out["labels"] == exp["labels"] and out["bbox_images"] is None
+        else:
+            _assert_samples_equal(out, exp, trajectory=False)
+    assert ours.get_labels_by_index(0, 0) == ref.get_labels_by_index(0, 0)
+    rng = np.random.default_rng(2)
+    for _ in range(5):
+        mask = rng.integers(0, 4, (12, 17)) * (rng.random((12, 17)) < 0.3)
+        assert masks_to_boxes(mask) == jax_masks_to_boxes(mask)
 
 
 @pytest.mark.parametrize("seed", [0, 1])

@@ -261,7 +261,11 @@ def test_import_leaves_jax_and_flax_out():
         "ctrlv_tpu_torch.tools.eval_video_bbox_prediction, "
         "ctrlv_tpu_torch.tools.eval_video_generation, ctrlv_tpu_torch.utils.profiling, "
         "ctrlv_tpu_torch.tools.flops, ctrlv_tpu_torch.tools.bench, "
-        "ctrlv_tpu_torch.tools.bench_train, ctrlv_tpu_torch.tools.profile_denoise; "
+        "ctrlv_tpu_torch.tools.bench_train, ctrlv_tpu_torch.tools.profile_denoise, "
+        "ctrlv_tpu_torch.data.nuscenes_tables, ctrlv_tpu_torch.data.nuscenes, "
+        "ctrlv_tpu_torch.data.davis, ctrlv_tpu_torch.utils.fourier, "
+        "ctrlv_tpu_torch.tools.draw_teaser, ctrlv_tpu_torch.tools.run_tracking_metrics, "
+        "ctrlv_tpu_torch.tools.preprocess_dataset, ctrlv_tpu_torch.tools.dataset_examples; "
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'ctrlv_tpu', 'safetensors')); "
         "print(bad); sys.exit(1 if bad else 0)"
