@@ -5,8 +5,9 @@
 Drives the port's two serving paths, its ControlNet and stage-1 training
 steps, its overall-eval entry point, its three trainer entry points, its
 evaluation-metric commands, its measurement tools and its teaser and data
-commands at the full SVD-XT width with seeded random bf16 weights, through
-its eight hand-written CUDA kernels:
+commands at the full SVD-XT width with seeded random bf16 weights, the AR
+bbox baseline's two commands and the legacy models at their published
+widths, through its eight hand-written CUDA kernels:
 
 1. device: the card's name and power limit, torch and CUDA versions, the
    TF32 switches;
@@ -113,7 +114,7 @@ its eight hand-written CUDA kernels:
 13. bench: the measurement tools (ctrlv_tpu_torch.tools.bench, bench_train,
    profile_denoise), each run as a user runs it, in a process of its own
    with a time limit, after [train_svd] has freed the models and before
-   [eval] writes its checkpoint: ``tools.bench --workload overall --runs 3``
+   [eval] writes its checkpoint: ``tools.bench --workload overall --runs 2``
    (its Box2Video line and its overall line), ``tools.bench_train --regime
    controlnet,lora,full --accum 5 --measure_steps 1`` and
    ``tools.profile_denoise --steps 2``. Each JSON line is printed; every one
@@ -132,15 +133,37 @@ its eight hand-written CUDA kernels:
    s/request, the loader's first wait, a clip's host seconds, export and
    plot seconds and peak memory printed.
 
+15. baseline (after [train_svd], on its models): the AR bbox baseline's
+   commands as a user runs them at the default BaselineConfig (batch 2, 25
+   timesteps x 15 agents, hidden 256, 2 + 4 layers) on the synthetic dataset
+   at 512x320, in a working directory of its own: tools.train_bbox_baseline
+   for 40 steps, then tools.eval_bbox_baseline on 4 clips from the checkpoint
+   it wrote; s/step (median and spread), first and last loss, checkpoint MB
+   with a save's and a restore's seconds (restored tensors bit-equal), s a
+   rollout, render and export seconds, the scores and peak memory; the
+   card's loss of a fixed batch within 1e-4 of the CPU's in IEEE f32; then
+   the baseline's ImageEncoder once on a 512x320 frame over the VAE and CLIP,
+   its K4 and K5 launches those of a VAE encode and a CLIP forward;
+16. legacy: the legacy models at their published widths with seeded random
+   bf16 weights: the UNet2D with both object hooks at SD1.x width (batch 2,
+   64x64 latents, 77 text tokens, 16 object tokens from KittiObjectNet over a
+   collated synthetic batch), encode_bbox_frame of the bbox-cond UNet-ST at
+   SVD-XT's config (25 frames, 8 layers, width 2500) and LayoutNet's
+   generate_step at GPT-2 base width (f32, 22 steps): each one's launches
+   against its routed sites (K4, K5 and K6 on the UNet2D), all kernels
+   against all plain within 5e-2 relative L2, ms a call in turns, peak
+   memory; the encoded objects must not move encode_bbox_frame.
+
 ``python3 chip_smoke.py --profile [DIR]`` instead builds the models and
 prints one step's device time by kind of kernel and by kernel
 (tools.profile_denoise over torch.profiler; the tables by kernel go to DIR,
 by default output/), with K7 off and on in turns, then K6 off and on.
 
 Forward hooks on every GroupNorm and LayerNorm count K4's and K5's launches
-by input shape on the four paths (an extra, untimed Box2Video request and
+by input shape on five paths (an extra, untimed Box2Video request and
 overall request; the untimed warm-up ControlNet and stage-1 temporal
-micro-steps), printed as one table (``[shapes]``) before the end.
+micro-steps; an extra, untimed UNet2D forward), printed as one table
+(``[shapes]``) before the end.
 
 Prints a JSON line of the kernels, then, as the last line,
 {"ok": true, "device": {...}}. A failed check exits non-zero before that
@@ -169,13 +192,21 @@ import torch.nn.functional as F
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
+from ctrlv_tpu_torch.baseline import BaselineConfig, ImageEncoder, process_data  # noqa: E402
 from ctrlv_tpu_torch.data import get_dataloader  # noqa: E402
+from ctrlv_tpu_torch.metrics.common import ieee_f32  # noqa: E402
 from ctrlv_tpu_torch.models import (  # noqa: E402
     AutoencoderKLTemporalDecoder,
     CLIPVisionConfig,
     CLIPVisionModelWithProjection,
     ControlNetSpatioTemporal,
+    KittiObjectNet,
+    LayoutNet,
+    LayoutNetConfig,
+    UNet2DConditionModel,
+    UNet2DConfig,
     UNetSpatioTemporalConditionModel,
+    UNetSpatioTemporalConditionModelWithBBoxCond,
     UNetSTConfig,
     VAEConfig,
 )
@@ -193,8 +224,8 @@ from ctrlv_tpu_torch.pipelines import (  # noqa: E402
 from ctrlv_tpu_torch.tools import bench, profile_denoise  # noqa: E402
 from ctrlv_tpu_torch.tools import common as tool_common  # noqa: E402
 from ctrlv_tpu_torch.tools import (  # noqa: E402
-    eval_overall, eval_video_bbox_prediction, eval_video_generation, train_vae_finetuning,
-    train_video_controlnet, train_video_diffusion,
+    eval_bbox_baseline, eval_overall, eval_video_bbox_prediction, eval_video_generation,
+    train_bbox_baseline, train_vae_finetuning, train_video_controlnet, train_video_diffusion,
 )
 from ctrlv_tpu_torch.tools.timing import device_ms  # noqa: E402
 from ctrlv_tpu_torch.train import (  # noqa: E402
@@ -213,6 +244,7 @@ from ctrlv_tpu_torch.train import (  # noqa: E402
     vae_decoder_predicate,
 )
 from ctrlv_tpu_torch.utils.config import Config  # noqa: E402
+from ctrlv_tpu_torch.utils.objectnet import generate_step  # noqa: E402
 from ctrlv_tpu_torch.utils.safetensors_io import iter_tensors  # noqa: E402
 
 H, W, FRAMES, CHUNK = 320, 512, 25, 8
@@ -400,6 +432,24 @@ KERNEL_CASES = [
     ("layer_norm", dict(shape=(16000, 640)), True),
     ("layer_norm", dict(shape=(4000, 1280)), True),
     ("layer_norm", dict(shape=(1000, 1280)), True),  # mid block
+    # The legacy UNet2D at SD1.x width (batch 2 at 64x64 latents): K4 on 4096-pixel
+    # planes (10 channels a group at C = 320) and on the up path's skip concatenations,
+    # K5 at its token rows, K6 at M = 8192 and 2048; the bbox attention's GroupNorm of
+    # 4 groups of one channel; TextTimeEmbedding's LayerNorms.
+    ("group_norm", dict(shape=(2, 320, 64, 64), act="silu"), True),
+    ("group_norm", dict(shape=(2, 320, 64, 64), act=None), True),
+    ("group_norm", dict(shape=(2, 960, 64, 64), act="silu"), True),
+    ("group_norm", dict(shape=(2, 640, 32, 32), act="silu"), True),
+    ("group_norm", dict(shape=(2, 1920, 32, 32), act="silu"), True),
+    ("group_norm", dict(shape=(2, 1280, 16, 16), act="silu"), True),
+    ("group_norm", dict(shape=(2, 2560, 8, 8), act="silu"), True),
+    ("group_norm", dict(shape=(1, 4, 40, 64), act=None, groups=4), True),
+    ("layer_norm", dict(shape=(8192, 320)), True),
+    ("layer_norm", dict(shape=(2048, 640)), True),
+    ("layer_norm", dict(shape=(512, 1280)), True),
+    ("layer_norm", dict(shape=(32, 768)), True),
+    ("geglu_ff", dict(shape=(8192, 320)), True),
+    ("geglu_ff", dict(shape=(2048, 640)), True),
     # K7, (N, C, H, W) of a same-channel spatial ResBlock: the Box2Video step, the
     # training micro-step and stage 1 at level 0; the deeper levels (a tile spans
     # several samples at 10x16 and 5x8) at the Box2Video step's batch, the training
@@ -1304,8 +1354,9 @@ def launches_by_shape(path: str, nets):
 def print_launches_by_shape() -> None:
     paths = list(LAUNCHES_BY_SHAPE)
     keys = sorted({k for by in LAUNCHES_BY_SHAPE.values() for k in by})
-    print(f"[shapes] launches of K4 and K5 by input shape, a request (box2video, overall) or a "
-          f"micro-step (train, train_svd); columns: {', '.join(paths)}")
+    print(f"[shapes] launches of K4 and K5 by input shape, a request (box2video, overall), a "
+          f"micro-step (train, train_svd) or a forward (legacy_unet2d); columns: "
+          f"{', '.join(paths)}")
     for kind, shape in keys:
         print(f"[shapes] {kind} {shape}: " + ", ".join(
             f"{LAUNCHES_BY_SHAPE[p].get((kind, shape), 0):g}" for p in paths), flush=True)
@@ -2843,9 +2894,11 @@ def phase_teaser(card: str, overall: dict, ckpt: str) -> dict:
         torch.cuda.empty_cache()
 
 
+# timed requests of each workload: two leave room in the time limit for [baseline] and [legacy]
+BENCH_TIMED_RUNS = 2
 # [bench]: the measurement tools, each a process of its own with its time limit in seconds
 BENCH_RUNS = (
-    ("bench", ("--workload", "overall", "--runs", "3"), 400),
+    ("bench", ("--workload", "overall", "--runs", str(BENCH_TIMED_RUNS)), 400),
     ("bench_train", ("--regime", "controlnet,lora,full", "--accum", "5", "--measure_steps", "1"),
      500),
     ("profile_denoise", ("--steps", "2", "--top", "12"), 300),
@@ -2908,7 +2961,7 @@ def run_tool(name: str, args, timeout: int) -> tuple:
 def phase_bench(card: str, paths: dict) -> None:
     """The measurement tools as a user runs them, each in a process of its own
     while this one holds no model: ``tools.bench --workload overall`` (its
-    Box2Video line, median of 3 runs, and its overall line), ``tools.bench_train``
+    Box2Video line, median of BENCH_TIMED_RUNS runs, and its overall line), ``tools.bench_train``
     (ControlNet, LoRA and full finetune at accumulation 5, one timed update
     each) and ``tools.profile_denoise`` (2 steps). Every line must hold its
     keys with finite values and an MFU in (0, 1); a clip's launches must be
@@ -2932,7 +2985,7 @@ def phase_bench(card: str, paths: dict) -> None:
         check_line(line["metric"], line["detail"], detail, line["detail"]["mfu"])
         if line["value"] != float(np.median(line["detail"]["times_s"])):
             fail(f"{line['metric']}: value {line['value']} is not the median of the runs")
-    if not all_finite(clip["vs_baseline"]) or clip["detail"]["runs"] != 3:
+    if not all_finite(clip["vs_baseline"]) or clip["detail"]["runs"] != BENCH_TIMED_RUNS:
         fail(f"the Box2Video line: vs_baseline {clip['vs_baseline']}, runs "
              f"{clip['detail']['runs']}")
     check_launches("tools.bench's Box2Video clip", clip["detail"]["launches"], paths["box2video"])
@@ -3000,6 +3053,271 @@ def profile_step(models, card: str, out_dir: str) -> None:
         f"{v} {', '.join(f'{x:.1f}' for x in xs)}" for v, xs in step_device_ms.items()), flush=True)
 
 
+# [baseline]: the AR bbox baseline's two commands at the default BaselineConfig
+BASELINE_STEPS, BASELINE_SAMPLES = 40, 4
+# the card's loss of a fixed batch against the CPU's, both in IEEE f32, relative
+BASELINE_LOSS_TOL = 1e-4
+
+
+def phase_baseline(models, card: str) -> dict:
+    """The AR bbox baseline as a user runs it, at the default BaselineConfig
+    (batch 2, 25 timesteps x 15 agents, hidden 256, 2 + 4 layers, 8 heads) on
+    the synthetic dataset at 512x320, in a working directory of its own:
+    ``tools.train_bbox_baseline`` for BASELINE_STEPS steps (its checkpoint
+    written at the end), then ``tools.eval_bbox_baseline`` on BASELINE_SAMPLES
+    clips from that checkpoint (rollout, render, score, GIF). Checks: finite
+    losses, the checkpoint restored bit for bit, every rollout of 25 frames
+    with its GIF, the scores in [0, 1], and the card's loss of one fixed batch
+    against the CPU's in IEEE f32. Then the baseline's ``ImageEncoder`` once
+    over the VAE and CLIP of ``models`` on a 512x320 frame: its K4 and K5
+    launches those of one VAE encode and one CLIP forward. The model itself
+    runs in f32 and reaches no kernel."""
+    from ctrlv_tpu_torch.utils.video_io import load_video
+
+    cfg = BaselineConfig(dataset="synthetic", device=DEVICE)
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    work, cwd = tempfile.mkdtemp(prefix="baseline_", dir=BUILD_DIR), os.getcwd()
+    history, evals = [], []
+    try:
+        os.chdir(work)
+        _launch.reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        model = train_bbox_baseline.main(cfg=cfg, max_steps=BASELINE_STEPS, history=history)
+        train_s = time.perf_counter() - t0
+        train_peak = torch.cuda.max_memory_allocated() / 2**30
+        counts = dict(_launch.LAUNCHES)
+        losses = [h["loss"] for h in history]
+        if len(history) != BASELINE_STEPS or not np.all(np.isfinite(losses)):
+            fail(f"[baseline] training: {len(history)} steps, losses {losses}")
+        step_s = np.asarray([h["seconds"] for h in history[1:]])  # the first builds the graph
+        ckpt_dir = os.path.join(work, train_bbox_baseline.CHECKPOINT_DIR)
+        state = {k: v.detach().clone() for k, v in model.state_dict().items()}
+        manager = CheckpointManager(os.path.join(work, "timed_save"))
+        t0 = time.perf_counter()
+        manager.save(BASELINE_STEPS, model.state_dict(), wait=True)
+        save_s = time.perf_counter() - t0
+        # a model of another seed, so that the restore has values to change
+        fresh = train_bbox_baseline.build_model(dataclasses.replace(cfg, seed=1),
+                                                torch.device(DEVICE))
+        t0 = time.perf_counter()
+        restored = CheckpointManager(ckpt_dir).restore(template=fresh.state_dict())
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        same = sum(torch.equal(restored[k], v) for k, v in state.items())
+        if same != len(state) or restored.keys() != state.keys():
+            fail(f"[baseline] the checkpoint restored {same} of {len(state)} tensors bit for bit")
+        print(f"[baseline] tools.train_bbox_baseline: {BASELINE_STEPS} steps in {train_s:.3f} s, "
+              f"s/step median {np.median(step_s):.4f} (min {step_s.min():.4f}, max "
+              f"{step_s.max():.4f}, spread {100 * np.ptp(step_s) / np.median(step_s):.1f} %, "
+              f"first step {history[0]['seconds']:.3f} s), loss first {losses[0]:.4f} last "
+              f"{losses[-1]:.4f}; checkpoint {dir_gb(ckpt_dir) * 1e3:.3f} MB, a save "
+              f"{save_s:.3f} s, a restore {restore_s:.3f} s ({same} tensors bit-equal); "
+              f"max_memory_allocated {train_peak:.3f} GiB; launches {counts}; card {card}",
+              flush=True)
+
+        # the card's loss of one fixed batch against the CPU's, both in IEEE f32
+        ds, loader = get_dataloader(cfg.data_root, "synthetic", if_train=False, batch_size=2,
+                                    clip_length=cfg.num_timesteps, shuffle=False)
+        objects = next(iter(loader))["objects"]
+        size = (ds.orig_W, ds.orig_H)
+        cpu_model = copy.deepcopy(model).cpu()
+        with torch.no_grad(), ieee_f32():
+            card_loss = train_bbox_baseline.loss_fn(
+                cfg, model, process_data(cfg, objects, size, DEVICE)).item()
+            cpu_loss = train_bbox_baseline.loss_fn(
+                cfg, cpu_model, process_data(cfg, objects, size, "cpu")).item()
+        rel = abs(card_loss - cpu_loss) / abs(cpu_loss)
+        print(f"[baseline] a fixed batch's loss in IEEE f32: card {card_loss:.7f}, CPU "
+              f"{cpu_loss:.7f}, relative {rel:.2e} (tol {BASELINE_LOSS_TOL})", flush=True)
+        if not rel <= BASELINE_LOSS_TOL:
+            fail(f"[baseline] the card's loss {card_loss} against the CPU's {cpu_loss}")
+        del model, cpu_model, fresh
+
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        summary = eval_bbox_baseline.main(cfg=cfg, num_samples=BASELINE_SAMPLES, history=evals)
+        eval_s = time.perf_counter() - t0
+        eval_peak = torch.cuda.max_memory_allocated() / 2**30
+        out_dir = os.path.join(work, eval_bbox_baseline.OUT_DIR)
+        gifs = sorted(os.listdir(out_dir))
+        if gifs != [f"rollout_{i}.gif" for i in range(BASELINE_SAMPLES)] or len(
+                evals) != BASELINE_SAMPLES:
+            fail(f"[baseline] eval wrote {gifs}, {len(evals)} samples")
+        frames = [load_video(os.path.join(out_dir, g)).shape for g in gifs]
+        for e, shape in zip(evals, frames):
+            # a GIF merges a frame into the one before where they are equal
+            if e["frames"] != FRAMES or not 1 <= shape[0] <= FRAMES or shape[1:] != (
+                    cfg.train_H, cfg.train_W, 3):
+                fail(f"[baseline] a rollout of {e['frames']} frames, its GIF {shape}")
+        if set(summary) != set(evals[0]) - {"rollout_s", "render_s", "export_s", "frames"} or not all(
+                0.0 <= v <= 1.0 for v in summary.values()):
+            fail(f"[baseline] summary {summary}")
+        for i, e in enumerate(evals):
+            print(f"[baseline] tools.eval_bbox_baseline clip {i}: rollout {e['rollout_s']:.3f} s "
+                  f"({cfg.num_timesteps - cfg.initial_frames_condition_num} decoder passes), "
+                  f"render {e['render_s']:.3f} s, export {e['export_s']:.3f} s, GIF "
+                  f"{frames[i][0]} frames, miou {e['miou']:.4f}", flush=True)
+        print(f"[baseline] eval: {BASELINE_SAMPLES} clips in {eval_s:.3f} s, summary "
+              f"{json.dumps(summary)}; max_memory_allocated {eval_peak:.3f} GiB; card {card}",
+              flush=True)
+    finally:
+        os.chdir(cwd)
+        shutil.rmtree(work, ignore_errors=True)
+    counts = dict(_launch.LAUNCHES)  # train and eval: the model reaches no kernel
+
+    # the image-context encoder over the models this script built
+    enc = ImageEncoder(cfg, models["vae"], models["clip"])
+    frame = synthetic_request(3)[0]  # (1, 320, 512, 3) in [-1, 1]
+    before = dict(_launch.LAUNCHES)
+    tokens = enc(frame.to(DEVICE, torch.bfloat16))
+    torch.cuda.synchronize()
+    got = {k: _launch.LAUNCHES[k] - before[k] for k in before}
+    want = expected_launches({"vae": models["vae"], "clip": models["clip"]},
+                             {"enc": 1, "clip": 1}, {})
+    check_launches("[baseline] the ImageEncoder", got, want)
+    if tokens.shape != (1, 33, cfg.hidden_dim) or not bool(torch.isfinite(tokens).all()):
+        fail(f"[baseline] ImageEncoder tokens {tuple(tokens.shape)}")
+    ms = cuda_time_ms(lambda: enc(frame.to(DEVICE, torch.bfloat16)), reps=5, warmup=1)
+    print(f"[baseline] ImageEncoder on a 512x320 frame: tokens {tuple(tokens.shape)}, "
+          f"{ms:.3f} ms, launches K4 {got['group_norm']} K5 {got['layer_norm']} (a VAE encode "
+          f"and a CLIP forward); card {card}", flush=True)
+    for k in counts:
+        counts[k] += got[k]
+    return counts
+
+
+# [legacy]: the legacy models at their published widths, seeded random bf16 weights
+LEGACY_SEEDS = dict(unet2d=31, object_net=32, bbox_unet=33, layout_net=34)
+LEGACY_TURNS = 5
+LAYOUT_SEED_FRAMES, LAYOUT_STEPS = 3, 22
+
+
+def legacy_case(name: str, fn, card: str, expect: dict, tol: float = STEP_TOL) -> dict:
+    """One model's forward ``fn``: launches (against ``expect``, the routed
+    sites), all kernels against ``plain_kernels()`` in relative L2, ms a
+    forward (median of LEGACY_TURNS turns of each, in turns), peak GiB."""
+    torch.cuda.reset_peak_memory_stats()
+    before = dict(_launch.LAUNCHES)
+    out = fn()
+    torch.cuda.synchronize()
+    got = {k: _launch.LAUNCHES[k] - before[k] for k in before}
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    check_launches(f"[legacy] {name}", got, expect)
+    with _launch.plain_kernels():
+        ref = fn()
+    rel = rel_l2(out.float().cpu(), ref.float().cpu())
+    if not bool(torch.isfinite(out).all()) or not rel <= tol:
+        fail(f"[legacy] {name}: finite {bool(torch.isfinite(out).all())}, relative L2 against "
+             f"all plain {rel}")
+    ms, plain_ms = [], []
+    for variant in ("on", "plain", "plain", "on") * 2:
+        ctx = _launch.plain_kernels() if variant == "plain" else contextlib.nullcontext()
+        with ctx:
+            (ms if variant == "on" else plain_ms).append(
+                cuda_time_ms(fn, reps=LEGACY_TURNS, warmup=1))
+    print(f"[legacy] {name}: output {tuple(out.shape)}, relative L2 against all plain {rel:.2e} "
+          f"(tol {tol}); ms a call, kernels {np.median(ms):.3f} (turns "
+          f"{', '.join(f'{x:.3f}' for x in ms)}), all plain {np.median(plain_ms):.3f}; "
+          f"launches {({k: v for k, v in got.items() if v})}; max_memory_allocated {peak:.3f} GiB; "
+          f"card {card}", flush=True)
+    return got
+
+
+@torch.no_grad()
+def phase_legacy(card: str) -> dict:
+    """The legacy models at their published widths with seeded random bf16
+    weights, each driven once for the launch counts, then held against
+    ``plain_kernels()`` and timed: the UNet2D with both object hooks at SD1.x
+    width (batch 2, 64x64 latents, 77 text tokens of 768, 16 object tokens
+    from KittiObjectNet(out_dim=768, mid_dim=2048) over a collated synthetic
+    objects batch; K4, K5 and K6 at each routed site); ``encode_bbox_frame``
+    of the bbox-cond UNet-ST at SVD-XT's config (25 frames, 8 layers, width
+    2500, a (1, 4, 40, 64) latent; K4 at its GroupNorm of 4 groups, the rest
+    plain by the gates), which the encoded objects must not move; LayoutNet's
+    ``generate_step`` at GPT-2 base width (12 x 768, 1024 + 1024 channels, 3
+    seed frames, 22 steps) in f32, which reaches no kernel."""
+    def build(make, seed, dtype=torch.bfloat16):
+        with torch.device(DEVICE):
+            m = make()
+        bench.init_random_(m, seed)
+        return m.to(dtype).eval().requires_grad_(False)
+
+    gen = torch.Generator(device=DEVICE).manual_seed(30)
+    _, loader = get_dataloader(".", "synthetic", if_train=False, batch_size=2,
+                               clip_length=FRAMES, shuffle=False)
+    objects = {k: v.to(DEVICE) for k, v in next(iter(loader))["objects"].items()}
+    object_net = build(lambda: KittiObjectNet(out_dim=768, mid_dim=2048), LEGACY_SEEDS["object_net"])
+    totals = dict.fromkeys(_launch.LAUNCHES, 0)
+    before = dict(_launch.LAUNCHES)
+    clip_tokens = object_net(objects)  # (2, 25, 30, 768)
+    object_embs = object_net({k: v[:, 0] for k, v in objects.items()})[:, :16]  # (2, 16, 768)
+    if any(_launch.LAUNCHES[k] != before[k] for k in before) or object_embs.shape != (2, 16, 768):
+        fail(f"[legacy] KittiObjectNet: {tuple(object_embs.shape)}, launched kernels")
+
+    unet = build(lambda: UNet2DConditionModel(UNet2DConfig(
+        addition_embed_type="object", encoder_hid_dim_type="text_object_proj")),
+        LEGACY_SEEDS["unet2d"])
+    n_params = sum(p.numel() for p in unet.parameters())
+    sample = torch.randn((2, 64, 64, 4), generator=gen, device=DEVICE, dtype=torch.bfloat16)
+    text = torch.randn((2, 77, 768), generator=gen, device=DEVICE, dtype=torch.bfloat16)
+    t = torch.tensor(500.0, device=DEVICE)
+    expect = dict.fromkeys(_launch.LAUNCHES, 0)
+    expect.update(group_norm=count_modules(unet, layers.GroupNorm),
+                  layer_norm=count_modules(unet, layers.LayerNorm),
+                  geglu_ff=count_routed_ff(unet))
+    with launches_by_shape("legacy_unet2d", [unet]):
+        unet(sample, t, text, object_embs)
+    got = legacy_case(f"UNet2D, SD1.x width ({n_params / 1e9:.3f} B parameters), batch 2 at "
+                      f"64x64", lambda: unet(sample, t, text, object_embs), card, expect)
+    moved = rel_l2(unet(sample, t, text, object_embs + 1.0).float().cpu(),
+                   unet(sample, t, text, object_embs).float().cpu())
+    if not moved > 1e-3:
+        fail(f"[legacy] the UNet2D's object tokens moved its output by {moved}")
+    print(f"[legacy] UNet2D: object tokens + 1 move the output by {moved:.3e} relative L2; "
+          f"routed sites: {expect['group_norm']} GroupNorms, {expect['layer_norm']} LayerNorms, "
+          f"{expect['geglu_ff']} feed-forwards at C = 320 and 640", flush=True)
+    for k in totals:
+        totals[k] += got[k]
+    del unet
+    torch.cuda.empty_cache()
+
+    bbox_unet = build(lambda: UNetSpatioTemporalConditionModelWithBBoxCond(
+        UNET_CONFIG, num_frames=FRAMES, num_bbox_attn_layers=8), LEGACY_SEEDS["bbox_unet"])
+    latent = torch.randn((1, 4, H // 8, W // 8), generator=gen, device=DEVICE,
+                         dtype=torch.bfloat16)
+    encoded = clip_tokens[:1]
+    expect = dict.fromkeys(_launch.LAUNCHES, 0)
+    expect["group_norm"] = 1  # its GroupNorm(4); LayerNorm and FF at 2500 fail their gates
+    got = legacy_case("encode_bbox_frame of the bbox-cond UNet-ST (SVD-XT, 8 layers, width 2500)",
+                      lambda: bbox_unet.encode_bbox_frame(latent, encoded), card, expect)
+    out = bbox_unet.encode_bbox_frame(latent, encoded)
+    if out.shape != (1, FRAMES, 4, H // 8, W // 8) or not (
+            torch.equal(out, bbox_unet.encode_bbox_frame(latent, encoded + 1.0))
+            and torch.equal(out, bbox_unet.encode_bbox_frame(latent, None))):
+        fail("[legacy] encode_bbox_frame: its shape, or the encoded objects moved it")
+    print(f"[legacy] encode_bbox_frame: {tuple(out.shape)}; the encoded objects do not move it "
+          f"(bit-equal with objects + 1 and with none)", flush=True)
+    for k in totals:
+        totals[k] += got[k]
+    del bbox_unet
+    torch.cuda.empty_cache()
+
+    cfg = LayoutNetConfig()
+    layout_net = build(lambda: LayoutNet(cfg), LEGACY_SEEDS["layout_net"], torch.float32)
+    seed_layouts = torch.randn((2, LAYOUT_SEED_FRAMES, cfg.n_layout), generator=gen,
+                               device=DEVICE)
+    cond = torch.randn((2, cfg.n_cond), generator=gen, device=DEVICE)
+    got = legacy_case(f"LayoutNet generate_step (GPT-2 base, f32, {LAYOUT_STEPS} steps)",
+                      lambda: generate_step(layout_net, seed_layouts, cond, LAYOUT_STEPS), card,
+                      dict.fromkeys(_launch.LAUNCHES, 0))
+    for k in totals:
+        totals[k] += got[k]
+    del layout_net, object_net
+    torch.cuda.empty_cache()
+    return totals
+
+
 PHASE_SECONDS: dict = {}  # wall seconds a phase, printed with [done]
 
 
@@ -3033,7 +3351,10 @@ def main() -> None:
     del models["ctrl"]
     torch.cuda.empty_cache()
     paths["train_svd"] = timed_phase("train_svd", phase_train_svd, models, card)
+    paths["baseline"] = timed_phase("baseline", phase_baseline, models, card)
     del models
+    torch.cuda.empty_cache()
+    paths["legacy"] = timed_phase("legacy", phase_legacy, card)
     torch.cuda.empty_cache()
     # the tools' own processes: this one holds no model now
     timed_phase("bench", phase_bench, card, paths)
@@ -3076,7 +3397,12 @@ def main() -> None:
               "train_cli": kind not in ("small_mha_fm", "resblock"),
               "eval_bbox": kind not in ("small_mha_fm", "resblock"),
               "eval_gen": kind not in ("small_mha_fm", "resblock"),
-              "teaser": kind not in ("small_mha_fm", "resblock")}
+              "teaser": kind not in ("small_mha_fm", "resblock"),
+              # the baseline's ImageEncoder (VAE encoder, CLIP) and the legacy models:
+              # the norms, and K6 at the UNet2D's C = 320 and 640; attention heads of
+              # 40-160 (UNet2D), 100 (bbox attention) and 80 (CLIP) take the plain path
+              "baseline": kind in ("group_norm", "layer_norm"),
+              "legacy": kind in ("group_norm", "layer_norm", "geglu_ff")}
         if any((paths[name][kind] > 0) != due for name, due in on.items()):
             fail(f"{kind} was not launched on its paths: {rows[-1]['launches_by_path']}")
     print_launches_by_shape()

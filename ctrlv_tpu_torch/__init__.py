@@ -7,7 +7,10 @@ tools (``python -m ctrlv_tpu_torch.tools.eval_overall``,
 ``tools.eval_video_controlnet``) and the trainers
 (``tools.train_video_controlnet``, ``tools.train_video_diffusion``,
 ``tools.train_vae_finetuning``: f32 master weights under bf16 compute,
-training-state checkpoints, in-loop validation).
+training-state checkpoints, in-loop validation), the AR bbox baseline
+(``baseline``; ``tools.train_bbox_baseline``, ``tools.eval_bbox_baseline``)
+and the legacy models (the object-conditioned UNet2D, the bbox-cond UNet-ST,
+KittiObjectNet, LayoutNet).
 
 The JAX package ``ctrlv_tpu`` is the reference this port is held against;
 this package imports neither JAX nor flax. Its modules mirror that

@@ -5,14 +5,21 @@ for a param tree flattened to ``{"a/b/c": ndarray}``
 (``flax.traverse_util.flatten_dict(params, sep="/")``; a leading
 ``params/`` is dropped). The renames are the same:
 
-- a ``name_N`` component becomes ``name.N`` (``linear_1``/``linear_2`` keep
-  their names), so ``to_out_0`` becomes ``to_out.0`` and ``mlp_fc1``
-  becomes ``mlp.fc1``;
+- a ``name_N`` component becomes ``name.N`` (``linear_1``/``linear_2`` and
+  GPT-2's ``ln_1``/``ln_2`` keep their names), so ``to_out_0`` becomes
+  ``to_out.0`` and ``mlp_fc1`` becomes ``mlp.fc1``; every index of a
+  component splits, so the legacy UNet2D's ``down_blocks_0_resnets_0``
+  becomes ``down_blocks.0.resnets.0``;
+- the legacy UNet2D's ``mid_resnets_N`` and ``mid_attention`` become
+  diffusers' ``mid_block.resnets.N`` and ``mid_block.attentions.0``, its
+  ``downsample`` and ``upsample`` ``downsamplers.0`` and ``upsamplers.0``;
 - ``kernel`` becomes ``weight``, transposed: Linear (I,O) -> (O,I), Conv2d
   (kh,kw,I,O) -> (O,I,kh,kw), Conv3d (kt,kh,kw,I,O) -> (O,I,kt,kh,kw);
-- ``scale`` (a norm's) becomes ``weight``;
-- ``class_embedding``, ``position_embedding`` and ``mix_factor`` go
-  through as they are.
+- ``scale`` (a norm's) and ``embedding`` (an ``nn.Embed``'s table) become
+  ``weight``;
+- ``class_embedding``, ``position_embedding``, ``mix_factor`` and the legacy
+  models' raw parameters (``rz_weight``, ``object_w``, ``object_u``,
+  ``pool_query``, ``wpe``) go through as they are.
 
 ``component="image_encoder"`` adds transformers' CLIP prefixes
 (``vision_model.embeddings.``, ``vision_model.encoder.`` ...).
@@ -30,7 +37,27 @@ from typing import Dict, Mapping, Optional
 import numpy as np
 import torch
 
-_LITERAL_UNDERSCORE_NAMES = frozenset({"linear_1", "linear_2"})
+_LITERAL_UNDERSCORE_NAMES = frozenset({"linear_1", "linear_2", "ln_1", "ln_2"})
+# the legacy UNet2D's own names -> diffusers'
+_RENAMES = {
+    "mid_resnets": ["mid_block", "resnets"],
+    "mid_attention": ["mid_block", "attentions", "0"],
+    "downsample": ["downsamplers", "0"],
+    "upsample": ["upsamplers", "0"],
+}
+
+
+def _split_indices(component: str):
+    """``a_0_b_1`` -> [a, 0, b, 1]: every ``_N`` index split off."""
+    parts = []
+    while True:
+        m = re.fullmatch(r"(.+?)_(\d+)(?:_(.+))?", component)
+        if not m:
+            return parts + [component]
+        parts += [m.group(1), m.group(2)]
+        if m.group(3) is None:
+            return parts
+        component = m.group(3)
 
 
 def _clip_prefixes(name: str) -> str:
@@ -57,13 +84,13 @@ def flax_to_state_dict(
             prefix = prefix[1:]
         parts = []
         for p in prefix:
-            m = re.fullmatch(r"(.+?)_(\d+)", p)
             if p in ("mlp_fc1", "mlp_fc2"):
                 parts += ["mlp", p[4:]]
-            elif m and p not in _LITERAL_UNDERSCORE_NAMES:
-                parts += [m.group(1), m.group(2)]
-            else:
+            elif p in _LITERAL_UNDERSCORE_NAMES:
                 parts.append(p)
+            else:
+                for q in _split_indices(p):
+                    parts += _RENAMES.get(q, [q])
         if leaf == "kernel":
             if arr.ndim == 2:
                 arr = arr.T
@@ -72,7 +99,7 @@ def flax_to_state_dict(
             elif arr.ndim == 5:
                 arr = arr.transpose(4, 3, 0, 1, 2)
             leaf = "weight"
-        elif leaf == "scale":
+        elif leaf in ("scale", "embedding"):
             leaf = "weight"
         name = ".".join(parts + [leaf])
         if component == "image_encoder":

@@ -1,15 +1,17 @@
 """UNetSpatioTemporalConditionModel, the SVD video UNet.
 
-Counterpart of ``ctrlv_tpu/models/unet_st.py`` (base model; the bbox-cond
-variant, a legacy model that no pipeline runs, is not ported yet). Input (B, F, H, W, C_in) latents, the EDM
-continuous timestep, added_time_ids (fps-1, motion bucket, noise aug), and
-optionally the ControlNet's down and mid residuals; output (B, F, H, W, 4).
+Counterpart of ``ctrlv_tpu/models/unet_st.py``. Input (B, F, H, W, C_in)
+latents, the EDM continuous timestep, added_time_ids (fps-1, motion bucket,
+noise aug), and optionally the ControlNet's down and mid residuals; output
+(B, F, H, W, 4). ``UNetSpatioTemporalConditionModelWithBBoxCond`` is the
+legacy bbox-cond variant, which no pipeline runs: the UNet plus
+``encode_bbox_frame``.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 import torch.nn as nn
@@ -275,3 +277,41 @@ class UNetSpatioTemporalConditionModel(nn.Module):
         sample = self.conv_out(self.conv_norm_out(sample))
         out = sample.reshape((batch, num_frames) + sample.shape[1:])
         return out.permute(0, 1, 3, 4, 2)
+
+
+class UNetSpatioTemporalConditionModelWithBBoxCond(UNetSpatioTemporalConditionModel):
+    """The UNet-ST plus a rezero ``BBOXFrameAttention`` (``num_bbox_attn_layers``
+    layers, heads = num_frames, head dim = 4 * num_frames) that maps the first
+    frame latent to per-frame conditioning latents (``encode_bbox_frame``).
+    ``num_frames`` is a constructor keyword: the port's config has no field
+    for it.
+
+    As in the JAX module, the attention is built with no cross-attention
+    (``cross_attention_dim=None``), so the encoded objects reach nothing:
+    ``encode_bbox_frame`` takes them and its output does not depend on them
+    (ROADMAP §3)."""
+
+    def __init__(self, config: UNetSTConfig = UNetSTConfig(), num_frames: int = 25,
+                 num_bbox_attn_layers: int = 8, **kwargs):
+        from .bbox_attention import BBOXFrameAttention
+
+        super().__init__(config, **kwargs)
+        self.num_frames = num_frames
+        self.bbox_frame_attention = BBOXFrameAttention(
+            num_frames=num_frames, in_channels=config.out_channels,
+            out_channels=config.out_channels * num_frames, num_layers=num_bbox_attn_layers,
+            cross_attention_dim=None, norm_num_groups=4,
+        )
+
+    def encode_bbox_frame(self, frame_latent: torch.Tensor,
+                          encoded_objects: Optional[torch.Tensor]) -> torch.Tensor:
+        """(B, 4, h, w) + (B, F, O, D) -> (B, F, 4, h, w) conditioning latents:
+        the output's channels split frame-major, the reference's
+        reshape(b, F, C, H, W)."""
+        b, c, h, w = frame_latent.shape
+        tokens = None
+        if encoded_objects is not None:
+            bb, f, o, d = encoded_objects.shape
+            tokens = encoded_objects.reshape(bb, f * o, d)
+        out = self.bbox_frame_attention(frame_latent, tokens)
+        return out.view(b, self.num_frames, c, h, w)

@@ -156,11 +156,15 @@ def _all_finite(grads: Params) -> bool:
 class AdamW:
     """clip_by_global_norm, then optax's adamw: both moments, their bias
     corrections, m / (sqrt(v) + eps), the decoupled weight decay, and the
-    step by the schedule at the count of updates so far."""
+    step by the schedule at the count of updates so far. ``decay_mask`` is
+    optax's ``mask=``: a parameter it marks false is updated without the
+    weight decay (not frozen)."""
 
-    def __init__(self, schedule, b1, b2, eps, weight_decay, max_grad_norm, mu_dtype):
+    def __init__(self, schedule, b1, b2, eps, weight_decay, max_grad_norm, mu_dtype,
+                 decay_mask: Optional[Dict[str, bool]] = None):
         self.schedule, self.b1, self.b2, self.eps = schedule, b1, b2, eps
         self.weight_decay, self.max_grad_norm, self.mu_dtype = weight_decay, max_grad_norm, mu_dtype
+        self.decay_mask = decay_mask
 
     def init(self, params: Params) -> dict:
         return {
@@ -190,8 +194,9 @@ class AdamW:
             mu = _as(1 - self.b1, grads[name].dtype) * g + _as(self.b1, m.dtype) * m.float()
             nu = _as(1 - self.b2, grads[name].dtype) * g * g + _as(self.b2, v.dtype) * v.float()
             if name not in hold:
-                step = ((mu / bc1) / (torch.sqrt(nu / bc2) + self.eps)
-                        + self.weight_decay * p.float())
+                step = (mu / bc1) / (torch.sqrt(nu / bc2) + self.eps)
+                if self.decay_mask is None or self.decay_mask[name]:
+                    step = step + self.weight_decay * p.float()
                 p.copy_(p.float() - lr * step)
             state["mu"][name].copy_(mu)
             state["nu"][name].copy_(nu)

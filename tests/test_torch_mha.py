@@ -265,7 +265,14 @@ def test_import_leaves_jax_and_flax_out():
         "ctrlv_tpu_torch.data.nuscenes_tables, ctrlv_tpu_torch.data.nuscenes, "
         "ctrlv_tpu_torch.data.davis, ctrlv_tpu_torch.utils.fourier, "
         "ctrlv_tpu_torch.tools.draw_teaser, ctrlv_tpu_torch.tools.run_tracking_metrics, "
-        "ctrlv_tpu_torch.tools.preprocess_dataset, ctrlv_tpu_torch.tools.dataset_examples; "
+        "ctrlv_tpu_torch.tools.preprocess_dataset, ctrlv_tpu_torch.tools.dataset_examples, "
+        "ctrlv_tpu_torch.baseline, ctrlv_tpu_torch.baseline.config, "
+        "ctrlv_tpu_torch.baseline.actions, ctrlv_tpu_torch.baseline.model, "
+        "ctrlv_tpu_torch.baseline.policy, ctrlv_tpu_torch.baseline.image_encoder, "
+        "ctrlv_tpu_torch.tools.train_bbox_baseline, ctrlv_tpu_torch.tools.eval_bbox_baseline, "
+        "ctrlv_tpu_torch.models.unet_2d, ctrlv_tpu_torch.models.kitti_object_net, "
+        "ctrlv_tpu_torch.models.layout_net, ctrlv_tpu_torch.models.bbox_attention, "
+        "ctrlv_tpu_torch.models.unet_st, ctrlv_tpu_torch.utils.objectnet; "
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'ctrlv_tpu', 'safetensors')); "
         "print(bad); sys.exit(1 if bad else 0)"
