@@ -35,10 +35,11 @@ widths, through its eight hand-written CUDA kernels:
    that still routes the kernels (head dim 64, 1024 latent tokens), in bf16
    on the card against the same weights and draws in f32 on the CPU;
 5. step: one full-width ControlNet+UNet denoise step with all default
-   kernels, with each of K3, K4, K5, K8 switched off in turn, with K4 forced
-   onto each of its paths in turn (where the path can take the shape), with
-   K6 (on by default) switched off, with K7 (off by default) switched on,
-   and with all plain;
+   kernels, with each of K3, K4, K5 switched off in turn, under
+   --attention_impl xla (the library's attention at every attention site:
+   no launch of K1, K2, K3 or K8), with K4 forced onto each of its paths in
+   turn (where the path can take the shape), with K6 (on by default)
+   switched off, with K7 (off by default) switched on, and with all plain;
 6. sampler: two timed Box2Video requests: 25 frames at 512x320, CFG 1 -> 3,
    25 Euler steps, decode chunk 8, synthetic bbox frames; then a third,
    untimed, under the shape hooks (below);
@@ -56,6 +57,15 @@ widths, through its eight hand-written CUDA kernels:
    K6 on, K6 off and all plain from the same parameters and draws, and six
    more timings of each in turns for K6's A/B. Loss, gradients, which
    parameters moved and when, and every kernel's launch count are checked;
+8b. dist (after [train], on the serving models): the multi-card paths at
+   world 1, a process group of one NCCL rank in this process: three
+   Box2Video steps through the sampler's mesh= path and one ControlNet
+   micro-step with its AdamW update through the data-parallel step (ZeRO-1
+   asked for), each against the same call without a mesh (bit-equal
+   latents, loss, gradient norm and parameters, the same kernel launches,
+   the collective counters of ctrlv_tpu_torch.parallel above zero), then
+   tools.dryrun_multichip with one spawned rank. The card's machine has one
+   GPU: two or more ranks run only on the CPU (gloo) in the tests;
 9. train_svd: the stage-1 training step in the temporal regime (the bbox
    predictor: only the temporal transformer blocks train, as a partitioned
    subset) on one clip, with the same layout, checkpointing, encode chunk and
@@ -127,8 +137,9 @@ widths, through its eight hand-written CUDA kernels:
    tree: tools.preprocess_dataset (25 box frames at 512x320, by token),
    tools.dataset_examples (synthetic and DAVIS present, their batches on
    the card), then tools.draw_teaser on models its build_models loads from
-   [eval]'s checkpoint: three overall requests (seeds 9, 10, 11; 30 + 25
-   steps, decode chunk 8, two loader workers), each request's launches
+   [eval]'s checkpoint: two overall requests (seeds 9, 10; the tool's third
+   seed is cut for the time limit; 30 + 25 steps, decode chunk 8, two
+   loader workers), each request's launches
    [eval]'s, its GIFs, overlays and 1600x900 ground-truth plots checked;
    s/request, the loader's first wait, a clip's host seconds, export and
    plot seconds and peak memory printed.
@@ -188,6 +199,7 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
@@ -214,6 +226,9 @@ from ctrlv_tpu_torch.models import layers  # noqa: E402
 from ctrlv_tpu_torch.models.resnet import ResnetBlock2D  # noqa: E402
 from ctrlv_tpu_torch.ops import (  # noqa: E402
     _build, _launch, attention, geglu_ff, group_norm, layer_norm, mha, resblock,
+)
+from ctrlv_tpu_torch.parallel import (  # noqa: E402
+    COLLECTIVES, make_mesh, make_train_mesh, reset_collective_counts, shard_train_state,
 )
 from ctrlv_tpu_torch.pipelines import (  # noqa: E402
     GUIDANCE_PAIRS,
@@ -1135,7 +1150,8 @@ def phase_step(models) -> None:
         bench.set_temporal_layout(nets, "seq" if variant == "K3 off" else "frames_major")
         group_norm.set_fused_group_norm(variant != "K4 off")
         layer_norm.set_fused_layer_norm(variant != "K5 off")
-        attention.set_attention_impl("xla" if variant == "K8 off" else "auto")
+        # "xla": every attention site to the library's attention (K1-K3 and K8 off)
+        attention.set_attention_impl("xla" if variant == "xla" else "auto")
         geglu_ff.set_fused_geglu_ff(variant != "K6 off")
         resblock.set_fused_resblock(variant == "K7 on")
         try:
@@ -1151,7 +1167,7 @@ def phase_step(models) -> None:
             geglu_ff.set_fused_geglu_ff(True)
             resblock.set_fused_resblock(False)
 
-    variants = ("all kernels", "K3 off", "K4 off", *K4_FORCED, "K5 off", "K8 off", "K6 off",
+    variants = ("all kernels", "K3 off", "K4 off", *K4_FORCED, "K5 off", "xla", "K6 off",
                 "K7 on", "all plain")
     _launch.reset_launch_counts()
     preds = {v: run(v, step) for v in ("all kernels", "all plain")}
@@ -1183,6 +1199,16 @@ def phase_step(models) -> None:
     if counts_k7 != expect_k7 or not expect_k7["resblock"]:
         fail(f"one step with K7 on launched {counts_k7}, expected {expect_k7}")
     rel_k7 = ((preds["K7 on"] - preds["all plain"]).norm() / preds["all plain"].norm()).item()
+    # --attention_impl xla: no attention kernel, K1-K3 and K8 alike, as in the JAX package
+    _launch.reset_launch_counts()
+    preds["xla"] = run("xla", step)
+    torch.cuda.synchronize()
+    counts_xla = dict(_launch.LAUNCHES)
+    attn = ("mha", "small_mha", "small_mha_fm", "flash")
+    expect_xla = dict(expect, **dict.fromkeys(attn, 0))
+    if counts_xla != expect_xla:
+        fail(f"one step under attention_impl xla launched {counts_xla}, expected {expect_xla}")
+    rel_xla = ((preds["xla"] - preds["all plain"]).norm() / preds["all plain"].norm()).item()
 
     samples = {v: [] for v in variants}
     for order in (variants, variants[::-1]):
@@ -1206,9 +1232,11 @@ def phase_step(models) -> None:
           f"resblock a step ({routed['unet']} same-channel spatial ResBlocks of the UNet, "
           f"{routed['ctrl']} of the ControlNet; every up-block ResBlock has a 1x1 shortcut and "
           f"takes the unfused path), {counts_k7['group_norm']} of group_norm", flush=True)
-    if not (torch.isfinite(pred).all() and max(rel, rel_k6, rel_k7) <= STEP_TOL):
+    print(f"[step] xla vs all plain: rel_l2={rel_xla:.3e}; launches of K1, K2, K3, K8 "
+          f"{[counts_xla[k] for k in attn]} (the library's attention at every site)", flush=True)
+    if not (torch.isfinite(pred).all() and max(rel, rel_k6, rel_k7, rel_xla) <= STEP_TOL):
         fail(f"kernel step differs from the plain step: rel_l2 {rel}, with K6 {rel_k6}, with K7 "
-             f"{rel_k7}")
+             f"{rel_k7}, under xla {rel_xla}")
 
 
 @torch.no_grad()
@@ -1760,6 +1788,121 @@ def phase_train(models, card: str) -> dict:
     path_counts = updates[1]
     if not path_counts["geglu_ff"]:
         fail("the training path did not launch K6")
+    return path_counts
+
+
+DIST_STEPS = 3  # Euler steps of [dist]'s two Box2Video runs
+
+
+def phase_dist(models, card: str) -> dict:
+    """The multi-card paths (ctrlv_tpu_torch.parallel) at world 1 over NCCL, in
+    this process (a FileStore under build/): the Box2Video sampler through its
+    mesh= path and the ControlNet training step through its data-parallel
+    update (ZeRO-1 asked for), each against the same call without a mesh; then
+    the dry-run command with one spawned rank. World 1 must be exact: the same
+    latents, loss, gradient norm and parameters to the bit and the same kernel
+    launches, while the collective counters show that the mesh path called
+    torch.distributed. Returns the mesh runs' launches."""
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    store = os.path.join(BUILD_DIR, "dist_rendezvous")
+    if os.path.exists(store):
+        os.remove(store)
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method=f"file://{store}", rank=0, world_size=1)
+    unet, ctrl, vae, clip = (models[k] for k in ("unet", "ctrl", "vae", "clip"))
+    try:
+        def counted(fn):
+            torch.cuda.synchronize()
+            _launch.reset_launch_counts()
+            reset_collective_counts()
+            t0 = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            return out, dict(_launch.LAUNCHES), dict(COLLECTIVES), time.perf_counter() - t0
+
+        image, cond = synthetic_request(4)
+
+        def sample(mesh):
+            pipe = StableVideoControlPipeline(unet, ctrl, vae, clip, mesh=mesh)
+            return pipe(image, cond, generator=torch.Generator(device=DEVICE).manual_seed(4),
+                        num_frames=FRAMES, num_inference_steps=DIST_STEPS,
+                        min_guidance_scale=1.0, max_guidance_scale=3.0,
+                        decode_chunk_size=CHUNK, output_type="latent")
+
+        ref, ref_counts, ref_coll, ref_s = counted(lambda: sample(None))
+        lat, counts, coll, secs = counted(lambda: sample(make_mesh(1, 1)))
+        if not torch.equal(lat, ref) or counts != ref_counts:
+            fail(f"[dist] the Box2Video mesh path differs from the plain one: latents equal "
+                 f"{torch.equal(lat, ref)}, launches {counts} against {ref_counts}")
+        if any(ref_coll.values()) or not coll["all_gather"]:
+            fail(f"[dist] collectives: without a mesh {ref_coll}, with {coll}")
+        print(f"[dist] Box2Video, {DIST_STEPS} steps at {W}x{H}x{FRAMES} on a 1x1 NCCL mesh: "
+              f"latents bit-equal to the run without a mesh, launches {counts} equal, "
+              f"collectives {coll}; {secs:.3f} s against {ref_s:.3f} s", flush=True)
+        path_counts = dict(counts)
+
+        # one ControlNet micro-step and its AdamW update (accumulation 1)
+        start = {k: p.detach().clone() for k, p in ctrl.named_parameters()}
+        unet.remat_block = ctrl.remat_block = True  # block checkpointing, as [train]
+        gen = torch.Generator(device=DEVICE).manual_seed(7)
+        clips, bbox = (2 * torch.rand((1, FRAMES, H, W, 3), generator=gen, device=DEVICE) - 1
+                       for _ in range(2))
+
+        def micro_step(mesh):
+            with torch.no_grad():
+                for k, p in ctrl.named_parameters():
+                    p.copy_(start[k])
+            tx = make_optimizer(learning_rate=1e-5, nan_guard_steps=0, mu_dtype="bfloat16")
+            step = make_controlnet_train_step(unet, ctrl, vae, clip, tx,
+                                              conditioning_dropout_prob=0.1,
+                                              encode_chunk=ENCODE_CHUNK, mesh=mesh)
+            state = init_train_state(ctrl.requires_grad_(True), tx)
+            if mesh is not None:
+                state = shard_train_state(state, mesh, zero1=True)
+            state, metrics = step(state, clips, bbox,
+                                  generator=torch.Generator(device=DEVICE).manual_seed(8))
+            return ({k: float(v) for k, v in metrics.items()},
+                    {k: p.detach().clone() for k, p in state.params.items()})
+
+        (ref_m, ref_p), ref_counts, ref_coll, ref_s = counted(lambda: micro_step(None))
+        (met, params), counts, coll, secs = counted(lambda: micro_step(make_train_mesh(1)))
+        moved = sum(not torch.equal(ref_p[k], start[k]) for k in ref_p)
+        same = all(torch.equal(params[k], ref_p[k]) for k in ref_p)
+        if met != ref_m or not same or counts != ref_counts or not moved:
+            fail(f"[dist] the data-parallel ControlNet step differs from the plain one: metrics "
+                 f"{met} against {ref_m}, parameters equal {same} ({moved} moved), launches "
+                 f"{counts} against {ref_counts}")
+        if any(ref_coll.values()) or not coll["all_reduce"]:
+            fail(f"[dist] collectives: without a mesh {ref_coll}, with {coll}")
+        print(f"[dist] ControlNet micro-step + AdamW update on a 1x1 NCCL mesh (ZeRO-1 asked "
+              f"for: one data rank slices nothing): loss {met['loss']:.6f} and grad norm "
+              f"{met['grad_norm']:.6f} equal, {moved} of {len(ref_p)} tensors moved and all "
+              f"bit-equal, launches equal, collectives {coll}; {secs:.3f} s against "
+              f"{ref_s:.3f} s", flush=True)
+        for k, v in counts.items():
+            path_counts[k] += v
+        del start, ref_p, params
+    finally:
+        unet.remat_block = ctrl.remat_block = False
+        ctrl.requires_grad_(False)
+        dist.destroy_process_group()
+        torch.cuda.empty_cache()
+
+    # the dry-run command as a user runs it: one rank of its own, NCCL
+    t0 = time.perf_counter()
+    cmd = [sys.executable, "-m", "ctrlv_tpu_torch.tools.dryrun_multichip", "--nproc", "1",
+           "--store_dir", BUILD_DIR]
+    try:
+        proc = subprocess.run(cmd, cwd=os.path.dirname(os.path.abspath(__file__)),
+                              capture_output=True, text=True, timeout=180)
+    except subprocess.TimeoutExpired:
+        fail("[dist] dryrun_multichip ran past 180 s")
+    line = proc.stdout.strip().splitlines()[-1] if proc.stdout.strip() else ""
+    if proc.returncode != 0 or not line.startswith("dryrun_multichip ok: mesh=(1x1)"):
+        print(proc.stdout[-4000:], proc.stderr[-4000:], flush=True)
+        fail(f"[dist] dryrun_multichip exited {proc.returncode}")
+    print(f"[dist] {line} ({time.perf_counter() - t0:.1f} s in its own process); card {card}",
+          flush=True)
     return path_counts
 
 
@@ -2650,7 +2793,9 @@ def phase_eval_metrics(card: str, ckpt: str) -> dict:
 # [teaser]: 12 Hz CAM_FRONT frames of the one nuScenes scene (every second one
 # is kept at 7 Hz: 25 frames, one validation clip), keyframes every sixth, the
 # real CAM_FRONT intrinsics (1600x900); the teaser tool's seeds a clip
-TEASER_RAW_FRAMES, TEASER_KEY_EVERY, TEASER_SEEDS = 49, 6, 3
+# the tool draws NUM_SEEDS = 3 seeds a clip; two keep the run inside its time
+# limit beside [dist] (the third repeats the same request with another seed)
+TEASER_RAW_FRAMES, TEASER_KEY_EVERY, TEASER_SEEDS = 49, 6, 2
 NUSC_INTRINSIC = [[1266.417, 0.0, 816.267], [0.0, 1266.417, 491.507], [0.0, 0.0, 1.0]]
 # instance: (category, size w l h, centre (x, y, z) at keyframe 0, its velocity
 # a keyframe, yaw a keyframe in radians, the keyframes it is annotated at)
@@ -2842,7 +2987,7 @@ def phase_teaser(card: str, overall: dict, ckpt: str) -> dict:
 
         _launch.reset_launch_counts()
         t0 = time.perf_counter()
-        with patched(draw_teaser, make_pipeline=checked_pipeline):
+        with patched(draw_teaser, make_pipeline=checked_pipeline, NUM_SEEDS=TEASER_SEEDS):
             records = draw_teaser.main(cfg)
         secs = time.perf_counter() - t0
         counts = dict(_launch.LAUNCHES)
@@ -3348,6 +3493,7 @@ def main() -> None:
     del models["unet1"]  # the stage-1 UNet is not trained
     torch.cuda.empty_cache()
     paths["train"] = timed_phase("train", phase_train, models, card)
+    paths["dist"] = timed_phase("dist", phase_dist, models, card)
     del models["ctrl"]
     torch.cuda.empty_cache()
     paths["train_svd"] = timed_phase("train_svd", phase_train_svd, models, card)
@@ -3393,6 +3539,7 @@ def main() -> None:
               "overall": kind != "resblock",
               "eval": kind not in ("small_mha_fm", "resblock"),
               "train": kind not in ("small_mha_fm", "resblock"),
+              "dist": kind not in ("small_mha_fm", "resblock"),
               "train_svd": kind != "small_mha_fm",
               "train_cli": kind not in ("small_mha_fm", "resblock"),
               "eval_bbox": kind not in ("small_mha_fm", "resblock"),

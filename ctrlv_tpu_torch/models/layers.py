@@ -28,7 +28,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..ops import mha
-from ..ops.attention import dot_product_attention
+from ..ops.attention import dot_product_attention, get_attention_impl
 from ..ops.geglu_ff import geglu_ff, geglu_ff_plain, geglu_ff_supported, gelu_erf
 from ..ops.group_norm import group_norm, group_norm_plain
 from ..ops.layer_norm import layer_norm, layer_norm_plain
@@ -139,7 +139,9 @@ class Attention(nn.Module):
     temporal kernel at few frames over many rows, the frames-major temporal
     kernel when ``temporal_frames`` is given. Everything else goes to
     ``ops.attention.dot_product_attention``, whose switch decides between
-    the one-pass kernel and the plain version.
+    the one-pass kernel and the plain version. Under ``"xla"`` the three
+    sites go there too, as in the JAX package, and so to the library's
+    attention.
     """
 
     def __init__(
@@ -194,19 +196,23 @@ class Attention(nn.Module):
         inner = self.heads * self.dim_head
         scale = self.dim_head**-0.5
         plain = mha.plain_selected()
+        kernels = get_attention_impl() != "xla"
         if temporal_frames is not None:
             if context is not None:
                 raise ValueError("frames-major temporal attention is self-attention")
-            if not plain and mha.small_mha_fm_supported(b, sq, inner, self.heads, temporal_frames):
+            if not kernels:
+                out = self._frames_major_library(q, k, v, temporal_frames, scale)
+            elif not plain and mha.small_mha_fm_supported(b, sq, inner, self.heads,
+                                                          temporal_frames):
                 out = mha.small_mha_attention_fm(q, k, v, self.heads, scale, temporal_frames)
             else:
                 out = mha.small_mha_attention_fm_plain(
                     q, k, v, self.heads, scale, temporal_frames
                 )
-        elif mha.mha_supported(sq, sk, inner, self.heads):
+        elif kernels and mha.mha_supported(sq, sk, inner, self.heads):
             fn = mha.mha_attention_plain if plain else mha.mha_attention
             out = fn(q, k, v, self.heads, scale)
-        elif mha.small_mha_supported(b, sq, sk, inner, self.heads):
+        elif kernels and mha.small_mha_supported(b, sq, sk, inner, self.heads):
             fn = mha.small_mha_attention_plain if plain else mha.small_mha_attention
             out = fn(q, k, v, self.heads, scale)
         else:
@@ -216,6 +222,20 @@ class Attention(nn.Module):
             ).reshape(b, sq, inner)
         out = self.to_out[0](out)
         return out + residual if self.residual_connection else out
+
+    def _frames_major_library(self, q, k, v, frames: int, scale: float):
+        """Attention over the F frames of each pixel of (B*F, S, H*D)
+        operands through ``dot_product_attention``: to (B*S, F, H, D) and
+        back (the JAX package's ``xla_fm_attention``)."""
+        bf, s, inner = q.shape
+        b = bf // frames
+
+        def to_bshd(x):
+            return x.reshape(b, frames, s, inner).transpose(1, 2).reshape(
+                b * s, frames, self.heads, self.dim_head)
+
+        out = dot_product_attention(to_bshd(q), to_bshd(k), to_bshd(v), scale)
+        return out.reshape(b, s, frames, inner).transpose(1, 2).reshape(bf, s, inner)
 
 
 class GEGLU(nn.Module):

@@ -6,6 +6,9 @@ Counterpart of ``ctrlv_tpu/models/resnet.py``. Spatial blocks take
 A same-channel ``ResnetBlock2D`` with a time embedding routes to the fused
 kernel of ``ops/resblock.py`` where ``set_fused_resblock`` and the shape gate
 allow; ``plain_kernels()`` sends it to that kernel's plain version.
+
+Under a frame shard (``parallel/frames.py``) the ST block's temporal half
+gathers the frames of its input over the frame group and keeps its own.
 """
 
 from __future__ import annotations
@@ -16,6 +19,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..ops._launch import plain_selected
+from ..parallel.frames import current_frame_shard
 from ..ops.resblock import fused_resblock2d, fused_resblock2d_plain, resblock_supported
 from .layers import AlphaBlender, GroupNorm
 
@@ -120,11 +124,21 @@ class SpatioTemporalResBlock(nn.Module):
     def forward(self, hidden_states, temb=None, image_only_indicator=None):
         num_frames = image_only_indicator.shape[-1]
         x = self.spatial_res_block(hidden_states, temb)
-        bf, c, h, w = x.shape
+        shard = current_frame_shard()
+        xs, ts = x, temb
+        if shard is not None:
+            # the temporal half (its GroupNorm and its convs) spans every frame
+            batch = image_only_indicator.shape[0]
+            xs = shard.gather(x, batch)
+            ts = None if temb is None else shard.gather(temb, batch)
+        bf, c, h, w = xs.shape
         b = bf // num_frames
         # contiguous: the norm kernel and the temporal conv read (B, C, F, H, W)
-        x5 = x.reshape(b, num_frames, c, h, w).permute(0, 2, 1, 3, 4).contiguous()
-        temb_f = temb.reshape(b, num_frames, -1) if temb is not None else None
+        x5 = xs.reshape(b, num_frames, c, h, w).permute(0, 2, 1, 3, 4).contiguous()
+        temb_f = ts.reshape(b, num_frames, -1) if ts is not None else None
         xt = self.temporal_res_block(x5, temb_f)
         xt = xt.permute(0, 2, 1, 3, 4).reshape(bf, c, h, w)
+        if shard is not None:
+            xt = shard.take(xt, b)
+            image_only_indicator = shard.local_frames(image_only_indicator)
         return self.time_mixer(x, xt, image_only_indicator)

@@ -11,6 +11,11 @@ temporal layouts:
 
 The two compute the same function from the same weights.
 ``temporal_layout`` is a plain attribute and may be set on a built model.
+
+Under a frame shard (``parallel/frames.py``) the spatial blocks run on this
+rank's frames; each temporal block gathers the frames over the frame group,
+runs on all of them and keeps its own. The frame position ids are the
+global frame indices.
 """
 
 from __future__ import annotations
@@ -20,6 +25,7 @@ from typing import Optional
 import torch
 import torch.nn as nn
 
+from ..parallel.frames import current_frame_shard
 from .layers import (
     AlphaBlender,
     BasicTransformerBlock,
@@ -70,18 +76,21 @@ class TransformerSpatioTemporalModel(nn.Module):
 
     def forward(self, hidden_states, encoder_hidden_states, image_only_indicator):
         """hidden_states (B*F, C, H, W); encoder_hidden_states (B*F, T, cross);
-        image_only_indicator (B, F)."""
+        image_only_indicator (B, F). Under a frame shard the first two hold
+        this rank's frames only and the indicator all F."""
         bf, channels, height, width = hidden_states.shape
-        num_frames = image_only_indicator.shape[-1]
-        batch = bf // num_frames
+        batch, num_frames = image_only_indicator.shape
+        shard = current_frame_shard()
+        first, last = (0, num_frames) if shard is None else (shard.lo, shard.hi)
         seq = height * width
 
         # Temporal cross-attention context: the first frame's tokens, batched
         # as the temporal block's input is: one copy per frame, (B*F, T, cross),
-        # when frames-major, else one per pixel, (B*S, T, cross).
+        # when frames-major, else one per pixel, (B*S, T, cross). Every frame
+        # carries the same CLIP context, so a shard's first frame serves.
         fm = self.temporal_layout == "frames_major"
         tokens = encoder_hidden_states.shape[-2]
-        tc = encoder_hidden_states.reshape(batch, num_frames, tokens, -1)[:, :1]
+        tc = encoder_hidden_states.reshape(batch, last - first, tokens, -1)[:, :1]
         copies = num_frames if fm else seq
         time_context = tc.expand(batch, copies, tokens, tc.shape[-1]).reshape(
             batch * copies, tokens, -1
@@ -93,13 +102,17 @@ class TransformerSpatioTemporalModel(nn.Module):
         h = self.proj_in(h)
         inner = h.shape[-1]
 
-        frame_ids = torch.arange(num_frames, device=h.device).repeat(batch)
+        frame_ids = torch.arange(first, last, device=h.device).repeat(batch)
         t_emb = get_timestep_embedding(frame_ids, self.in_channels)
         emb = self.time_pos_embed(t_emb.to(h.dtype))[:, None, :]  # (B*F, 1, C)
+        if shard is not None:
+            image_only_indicator = shard.local_frames(image_only_indicator)
 
         for block, tblock in zip(self.transformer_blocks, self.temporal_transformer_blocks):
             h = block(h, encoder_hidden_states)
             h_mix = h + emb
+            if shard is not None:
+                h_mix = shard.gather(h_mix, batch)
             if fm:
                 h_mix = tblock(h_mix, time_context, frames_major=num_frames)
             else:
@@ -113,9 +126,11 @@ class TransformerSpatioTemporalModel(nn.Module):
                 h_mix = (
                     h_mix.reshape(batch, seq, num_frames, inner)
                     .transpose(1, 2)
-                    .reshape(bf, seq, inner)
+                    .reshape(batch * num_frames, seq, inner)
                     .contiguous()
                 )
+            if shard is not None:
+                h_mix = shard.take(h_mix, batch)
             h = self.time_mixer(h, h_mix, image_only_indicator)
 
         h = self.proj_out(h)

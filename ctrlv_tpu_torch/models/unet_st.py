@@ -24,6 +24,7 @@ from .blocks_st import (
     UpBlockSpatioTemporal,
     maybe_checkpoint,
 )
+from ..parallel.frames import current_frame_shard
 from .layers import GroupNorm, TimestepEmbedding, get_timestep_embedding
 
 
@@ -173,13 +174,17 @@ def to_frames_nchw(video, dtype):
 def flatten_frames(sample, emb, encoder_hidden_states, dtype):
     """Batch-and-frame flattening at the top of the UNet and the ControlNet:
     the latents to (B*F, C, H, W), the embedding and the CLIP context
-    repeated per frame, and the all-zero image_only_indicator (B, F)."""
+    repeated per frame, and the all-zero image_only_indicator (B, F). Under
+    a frame shard ``sample`` holds this rank's frames, which the embedding
+    and the context are repeated for, while the indicator spans all F."""
     batch, num_frames = sample.shape[:2]
+    shard = current_frame_shard()
     return (
         to_frames_nchw(sample, dtype),
         emb.repeat_interleave(num_frames, dim=0),
         encoder_hidden_states.to(dtype).repeat_interleave(num_frames, dim=0),
-        torch.zeros(batch, num_frames, dtype=dtype, device=sample.device),
+        torch.zeros(batch, num_frames if shard is None else shard.frames, dtype=dtype,
+                    device=sample.device),
     )
 
 

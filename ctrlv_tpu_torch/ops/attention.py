@@ -17,14 +17,18 @@ own, with tiles sized for a few hundred tokens. It counts its launches as
 
 The switch keeps the JAX package's names:
 
-- ``"xla"``: always the plain version;
+- ``"xla"``: the library's attention (``library_attention``: SDPA on the
+  card, the plain version on the CPU), here and at the three sites of
+  ``models.layers.Attention`` that would take a kernel of ``ops/mha.py``, as
+  the JAX package sends all four to XLA's attention;
 - ``"pallas"``: the hand-written kernel wherever its gate passes;
 - ``"auto"`` (the default): the kernel where its gate passes and the H100's
   A/B of the full-width denoise step found it no slower (PERF.md).
 
 A CPU tensor always takes the plain version. On a CUDA tensor whose shape
 passes the gate the kernel launches or raises. The switch governs this
-module only; the kernels of ``ops/mha.py`` are switched by ``plain_kernels``.
+module and, through ``models.layers.Attention``, the kernels of
+``ops/mha.py``; ``plain_kernels`` switches every kernel to its plain version.
 """
 
 from __future__ import annotations
@@ -101,16 +105,27 @@ def flash_attention(q, k, v, scale: float):
     return with_recompute(run, lambda q, k, v: flash_attention_plain(q, k, v, scale), q, k, v)
 
 
+def library_attention(q, k, v, scale: float):
+    """The counterpart of XLA's attention that ``"xla"`` selects: PyTorch's
+    ``scaled_dot_product_attention`` on a CUDA tensor, the plain version on
+    the CPU; (B, S, H, D) in and out."""
+    if q.device.type == "cpu":
+        return flash_attention_plain(q, k, v, scale)
+    out = torch.nn.functional.scaled_dot_product_attention(
+        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), scale=scale)
+    return out.transpose(1, 2)
+
+
 def dot_product_attention(q, k, v, scale: Optional[float] = None):
     """Unmasked multi-head attention, (B, S, H, D) in and out."""
     if scale is None:
         scale = q.shape[-1] ** -0.5
+    if plain_selected():
+        return flash_attention_plain(q, k, v, scale)
+    if _ATTENTION_IMPL == "xla":
+        return library_attention(q, k, v, scale)
     # On the H100 the kernel made the full-width step faster (PERF.md, step
     # A/B), so "auto" takes it wherever its gate passes, as "pallas" does.
-    if (
-        _ATTENTION_IMPL != "xla"
-        and not plain_selected()
-        and flash_supported(q.shape[1], k.shape[1], q.shape[-1], q.dtype)
-    ):
+    if flash_supported(q.shape[1], k.shape[1], q.shape[-1], q.dtype):
         return flash_attention(q, k, v, scale)
     return flash_attention_plain(q, k, v, scale)

@@ -1,8 +1,9 @@
 """Pipeline machinery: the device a pipeline runs on, conditioning encoders,
-latent preparation, CFG ramp, the chunked temporal decode.
+latent preparation, CFG ramp, the chunked temporal decode, and where a
+sampler's latents lie on a mesh (``SampleShard``).
 
 Counterpart of ``ctrlv_tpu/pipelines/common.py`` without its TPU machinery
-(packed params, frame sharding).
+(packed params).
 """
 
 from __future__ import annotations
@@ -13,6 +14,9 @@ from typing import Optional
 import torch
 
 from ..models.clip_vision import clip_preprocess
+from ..parallel.frames import FrameShard
+from ..parallel.mesh import AXES
+from ..parallel.sharding import gather_shares, shares
 
 
 @dataclasses.dataclass(frozen=True)
@@ -152,3 +156,56 @@ def decode_latents(vae, latents, scaling_factor: float, decode_chunk_size=None,
 def postprocess_frames(frames):
     """[-1, 1] -> [0, 1], clamped."""
     return torch.clamp(frames / 2.0 + 0.5, 0.0, 1.0)
+
+
+class SampleShard:
+    """Where a sampler's (B, F, ...) latents lie on a mesh: the counterpart of
+    the JAX package's ``maybe_shard_frames``. On a mesh over a process group
+    the B samples (before the CFG doubling) split over the data axis and the
+    F frames over the frame axis, both contiguously and possibly unevenly
+    (25 frames over 2 ranks are 13 + 12, the overall eval's 5 candidates 3 +
+    2); one sample is not split, as in the JAX package. Without a mesh, or
+    on the mesh of a lone process, the rank holds everything and every
+    method is the identity. The conditioning is computed whole on every rank
+    and cut with ``local``; the denoised latents are made whole again with
+    ``gather``, so that every rank decodes and returns the same output."""
+
+    def __init__(self, mesh, batch: int, frames: int, do_cfg: bool):
+        self.batch, self.do_cfg = batch, do_cfg
+        self.mesh = mesh if mesh is not None and mesh.device_mesh is not None else None
+        self.row_bounds = None
+        self.lo, self.hi = 0, batch
+        self.frame = None
+        if self.mesh is not None:
+            if batch > 1:
+                self.row_bounds = shares(batch, self.mesh.n_data)
+                self.lo, self.hi = self.row_bounds[self.mesh.index(AXES.data)]
+            self.frame = FrameShard(self.mesh, frames)
+
+    @property
+    def rows(self) -> int:
+        return self.hi - self.lo
+
+    def local(self, x, cfg: bool = False, frames: bool = True):
+        """This rank's part of (B, ...) or, with ``cfg``, of a CFG-doubled
+        (2B, ...) tensor (its negative rows, then its positive ones); with
+        ``frames`` axis 1 is the frame axis and is cut too."""
+        if self.mesh is None:
+            return x
+        if cfg and self.do_cfg:
+            x = torch.cat([x[self.lo:self.hi], x[self.batch + self.lo:self.batch + self.hi]])
+        else:
+            x = x[self.lo:self.hi]
+        return self.frame.local_frames(x).contiguous() if frames else x.contiguous()
+
+    def gather(self, latents):
+        """This rank's (b, f, ...) latents -> the whole (B, F, ...) on every rank."""
+        if self.mesh is None:
+            return latents
+        b, f = latents.shape[:2]
+        rest = latents.shape[2:]
+        full = self.frame.gather(latents.reshape((b * f,) + rest), b)
+        full = full.reshape((b, self.frame.frames) + rest)
+        if self.row_bounds is not None:
+            full = gather_shares(full, self.mesh, AXES.data, self.row_bounds, dim=0)
+        return full

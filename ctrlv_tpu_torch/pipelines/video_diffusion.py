@@ -20,7 +20,9 @@ from typing import Optional, Union
 import torch
 
 from ..diffusion import EulerDiscreteScheduler, euler_step, scale_model_input
+from ..parallel.frames import frame_sharded
 from .common import (
+    SampleShard,
     SamplingConfig,
     check_generator,
     decode_latents,
@@ -38,8 +40,9 @@ from .common import (
 class VideoDiffusionPipeline:
     def __init__(self, unet, vae, image_encoder,
                  scheduler: Optional[EulerDiscreteScheduler] = None,
-                 device: Union[str, torch.device, None] = None):
+                 device: Union[str, torch.device, None] = None, mesh=None):
         self.device = resolve_device(device)
+        self.mesh = mesh
         self.unet = unet.to(self.device)
         self.vae = vae.to(self.device)
         self.image_encoder = image_encoder.to(self.device)
@@ -105,16 +108,25 @@ class VideoDiffusionPipeline:
         latents = latents.to(device).float() * sched.init_noise_sigma
         guidance = guidance_linspace(cfg.num_frames, guidance_minmax)
 
-        for i in range(cfg.num_inference_steps):
+        # on a mesh: this rank's samples and frames of everything the loop reads
+        shard = SampleShard(self.mesh, batch, cfg.num_frames, do_cfg)
+        latents, guidance = shard.local(latents), shard.local(guidance)
+        image_latents = shard.local(image_latents, cfg=True)
+        clip_emb = shard.local(clip_emb, cfg=True, frames=False)
+        add_time_ids = shard.local(add_time_ids, cfg=True, frames=False)
+
+        for i in range(cfg.num_inference_steps if shard.rows else 0):
             sigma, sigma_next = sched.sigmas[i], sched.sigmas[i + 1]
             t = sched.timesteps[i]
             lat_in = torch.cat([latents] * 2) if do_cfg else latents
             lat_in = torch.cat([scale_model_input(lat_in, sigma), image_latents], dim=-1)
-            pred = self.unet(lat_in, t, clip_emb, add_time_ids).float()
+            with frame_sharded(shard.frame):
+                pred = self.unet(lat_in, t, clip_emb, add_time_ids).float()
             if do_cfg:
                 uncond, cond = pred.chunk(2, dim=0)
                 pred = uncond + guidance * (cond - uncond)
             latents = euler_step(pred, latents, sigma, sigma_next)
+        latents = shard.gather(latents)
 
         if output_type == "latent":
             return latents

@@ -11,7 +11,15 @@ directory is not loaded. Only then are the modules cast to
 ``cfg.compute_dtype``: a trainer's f32 master weights start from the values
 before that cast, as the JAX trainers' f32 parameters do, while a bf16 file
 loaded through f32 and cast is the same bits as before. The modules live on
-the device: ``device``, else ``cfg.device``, else the card.
+the device: ``device``, else ``cfg.device``, else the card (``cuda:LOCAL_RANK``
+on a rank that ``torchrun`` started). Every rank builds the same seeded
+weights.
+
+On a mesh (``parallel/``) the trainers' ranks share what this module gives
+them: ``train_mesh`` lays the train state on the data axis by the JAX tools'
+rule, ``train_state_tree`` gathers ZeRO-1 slices (so a checkpoint is the one
+rank's and resumes at any world size), and only rank 0 writes
+(``leads``, ``SilentTracker``).
 """
 
 from __future__ import annotations
@@ -30,6 +38,8 @@ from ..models import (
     VAEConfig,
     controlnet_from_unet,
 )
+from ..parallel.mesh import idle_ranks, init_from_env, make_train_mesh, rank
+from ..parallel.sharding import gathered_opt_state, shard_train_state
 from ..pipelines.common import resolve_device
 from ..train.hf_import import load_hf_component
 from ..utils.config import Config
@@ -44,11 +54,9 @@ def build_models(cfg: Config, tiny: bool = False, with_controlnet: bool = False,
     state before the cast to ``compute_dtype`` comes back by parameter name
     under ``models["masters"][name]``: where a trainer's f32 master weights
     start."""
-    if cfg.mesh_frame > 1 or (cfg.mesh_data or 1) > 1:
-        raise NotImplementedError(
-            f"mesh_data={cfg.mesh_data}, mesh_frame={cfg.mesh_frame}: the port runs on one card "
-            "(multi-card is ROADMAP item 15)")
-    device = resolve_device(device if device is not None else cfg.device)
+    device = device if device is not None else cfg.device
+    init_from_env(device)  # a rank of torchrun joins its group on cuda:LOCAL_RANK
+    device = resolve_device(device)
     if tiny:
         ucfg, vcfg, ccfg = UNetSTConfig.tiny(), VAEConfig.tiny(), CLIPVisionConfig.tiny()
     else:
@@ -98,11 +106,56 @@ def train_state_tree(state, ema=None) -> dict:
     """What a trainer checkpoints: its optimizer state (the f32 masters, the
     moments, the accumulated gradient and the counters) and its step, with
     the EMA where there is one. The module tensors are their masters
-    rounded, so they are not saved."""
-    tree = {"opt_state": state.opt_state, "step": state.step}
+    rounded, so they are not saved. ZeRO-1 slices (of the EMA too) are
+    gathered: every data rank must call it."""
+    tree = {"opt_state": gathered_opt_state(state), "step": state.step}
     if ema is not None:
-        tree["ema"] = {"params": ema.params, "step": ema.step}
+        tree["ema"] = {"params": whole(state, ema.params), "step": ema.step}
     return tree
+
+
+def whole(state, tensors: dict) -> dict:
+    """Tensors by parameter name, sliced like the state's ZeRO-1 plan or
+    not, made whole (a collective where they are sliced)."""
+    if state.shards is None:
+        return tensors
+    return {k: state.shards.gather(k, v) for k, v in tensors.items()}
+
+
+def train_mesh(cfg: Config, state):
+    """The trainers' mesh and the state laid on it, by the JAX tools' rule:
+    a data axis that divides ``--train_batch_size`` (``make_train_mesh``),
+    and ZeRO-1 under ``--optimizer_sharding zero1``, or ``auto`` with a data
+    axis above one. Ranks outside the mesh are named; they sit the steps out
+    (``mesh.active`` is False there)."""
+    mesh = make_train_mesh(cfg.train_batch_size, n_data=cfg.mesh_data, n_frame=cfg.mesh_frame)
+    idle = idle_ranks(mesh)
+    if idle and leads():
+        print(f"mesh {mesh.n_data}x{mesh.n_frame}: ranks {idle} sit the steps out")
+    zero1 = cfg.optimizer_sharding == "zero1" or (
+        cfg.optimizer_sharding == "auto" and mesh.n_data > 1)
+    if mesh.active:
+        state = shard_train_state(state, mesh, zero1=zero1)
+    return mesh, state
+
+
+def leads() -> bool:
+    """Whether this process writes the tracker, checkpoints and exports:
+    rank 0, or the lone process."""
+    return rank() == 0
+
+
+class SilentTracker:
+    """The tracker of a rank other than 0: it logs nothing."""
+
+    def log_scalars(self, step, scalars) -> None:
+        pass
+
+    def log_video(self, step, name, frames_uint8, fps) -> str:
+        return ""
+
+    def finish(self) -> None:
+        pass
 
 
 def resume(ckpt, which: str, state, tx, ema=None) -> bool:

@@ -15,6 +15,12 @@ both stages. One ``torch.Generator`` on the device, seeded with ``--seed``,
 draws every sample's noise. The tool runs on the card unless ``--device``
 says otherwise; ``--dataloader_num_workers`` worker processes prepare the
 clips while the card samples.
+
+Under ``torchrun --nproc_per_node N`` with ``--mesh_data`` / ``--mesh_frame``
+above one, as in the JAX tool, both stages sample on a (data, frame) mesh of
+the N ranks (``pipelines.common.SampleShard``): the five candidates over the
+data axis, the frames over the frame axis. Every rank gets the same result;
+only rank 0 prints and writes the GIFs.
 """
 
 from __future__ import annotations
@@ -27,21 +33,24 @@ import numpy as np
 import torch
 
 from ..data import get_dataloader
+from ..parallel.mesh import make_mesh
 from ..pipelines import OverallPipeline, StableVideoControlPipeline, VideoDiffusionPipeline
 from ..utils.config import Config, parse_args
 from ..utils.video_io import export_to_video, frames_to_uint8
-from .common import build_models
+from .common import build_models, leads
 
 SCORES = ("miou", "ap", "ar", "miou_first_last", "ap_first_last", "ar_first_last")
 STAGE1_STEPS = 30
 
 
-def make_pipeline(models) -> OverallPipeline:
-    """The two stages over one set of models: the same UNet in both."""
+def make_pipeline(models, mesh=None) -> OverallPipeline:
+    """The two stages over one set of models: the same UNet in both, on
+    ``mesh`` where one is given."""
     device = models["device"]
-    bbox = VideoDiffusionPipeline(models["unet"], models["vae"], models["clip"], device=device)
+    bbox = VideoDiffusionPipeline(models["unet"], models["vae"], models["clip"], device=device,
+                                  mesh=mesh)
     ctrl = StableVideoControlPipeline(models["unet"], models["ctrl"], models["vae"],
-                                      models["clip"], device=device)
+                                      models["clip"], device=device, mesh=mesh)
     return OverallPipeline(bbox, ctrl)
 
 
@@ -49,7 +58,10 @@ def evaluate(pipe: OverallPipeline, loader, cfg: Config, max_samples=None, expor
     """Run the loop over ``loader``; returns (summary, samples): the summary
     maps each score to its (mean, std), and each sample's record holds its
     scores, its best guidance pair, the pipeline's seconds, the seconds the
-    loop waited on the loader for it and the seconds of its export."""
+    loop waited on the loader for it and the seconds of its export. Only
+    rank 0 prints and exports."""
+    lead = leads()
+    export = export and lead
     if export:
         os.makedirs(cfg.output_dir, exist_ok=True)
     generator = torch.Generator(device=pipe.device).manual_seed(cfg.seed)
@@ -79,12 +91,13 @@ def evaluate(pipe: OverallPipeline, loader, cfg: Config, max_samples=None, expor
         t2 = time.perf_counter()
         for k in SCORES:
             scores[k].append(result[k])
-        print(
-            f"[{i}] miou={result['miou']:.3f} ap={result['ap']:.3f} "
-            f"ar={result['ar']:.3f} avg_miou={np.mean(scores['miou']):.3f} "
-            f"best_guidance={result['best_guidance']} ({t2 - t1:.3f} s, loader wait "
-            f"{t1 - t0:.3f} s)", flush=True
-        )
+        if lead:
+            print(
+                f"[{i}] miou={result['miou']:.3f} ap={result['ap']:.3f} "
+                f"ar={result['ar']:.3f} avg_miou={np.mean(scores['miou']):.3f} "
+                f"best_guidance={result['best_guidance']} ({t2 - t1:.3f} s, loader wait "
+                f"{t1 - t0:.3f} s)", flush=True
+            )
         if export:
             export_to_video(
                 frames_to_uint8(result["video"]),
@@ -99,7 +112,8 @@ def evaluate(pipe: OverallPipeline, loader, cfg: Config, max_samples=None, expor
                             export_seconds=time.perf_counter() - t2))
 
     summary = {k: (float(np.mean(v)), float(np.std(v))) for k, v in scores.items()}
-    print("summary (mean, std):", summary)
+    if lead:
+        print("summary (mean, std):", summary)
     return summary, samples
 
 
@@ -116,7 +130,10 @@ def main(cfg=None, max_samples=None):
         if_last_frame_traj=cfg.if_last_frame_trajectory,
         pin_memory=models["device"].type == "cuda",
     )
-    return evaluate(make_pipeline(models), loader, cfg, max_samples=max_samples)[0]
+    mesh = None
+    if cfg.mesh_frame > 1 or (cfg.mesh_data or 1) > 1:
+        mesh = make_mesh(n_data=cfg.mesh_data, n_frame=cfg.mesh_frame)
+    return evaluate(make_pipeline(models, mesh), loader, cfg, max_samples=max_samples)[0]
 
 
 if __name__ == "__main__":

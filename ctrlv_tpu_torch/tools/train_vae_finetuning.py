@@ -11,7 +11,8 @@ every ``--validation_steps``; training-state checkpoints every
 ``--checkpointing_steps`` and at the end. As in the JAX tool, the run never
 resumes (``--resume_from_checkpoint`` is not read) and writes no pipeline,
 and the synthetic dataset means the tiny models. The tool runs on the card
-unless ``--device`` says otherwise.
+unless ``--device`` says otherwise; under ``torchrun`` it trains data
+parallel as the ControlNet trainer does (``tools.common.train_mesh``).
 """
 
 from __future__ import annotations
@@ -33,7 +34,14 @@ from ..train import (
 )
 from ..train.observability import Tracker, collect_demo_samples, run_vae_validation
 from ..utils.config import Config, parse_args
-from .common import batch_to_device, build_models, train_state_tree
+from .common import (
+    SilentTracker,
+    batch_to_device,
+    build_models,
+    leads,
+    train_mesh,
+    train_state_tree,
+)
 
 
 def train(cfg: Config, models, loader):
@@ -53,11 +61,15 @@ def train(cfg: Config, models, loader):
     tx = MasterWeights(tx, start={k: v for k, v in models["masters"].pop("vae").items()
                                   if k in trainable})
     state = init_train_state(trainable, tx)
-    step_fn = make_vae_decoder_train_step(vae, tx, device=device)
+    mesh, state = train_mesh(cfg, state)
+    if not mesh.active:
+        return None
+    step_fn = make_vae_decoder_train_step(vae, tx, device=device, mesh=mesh)
 
     ckpt = CheckpointManager(os.path.join(cfg.output_dir, "checkpoints"),
                              max_to_keep=cfg.checkpoints_total_limit)
-    tracker = Tracker(cfg)
+    lead = leads()
+    tracker = Tracker(cfg) if lead else SilentTracker()
     demo_samples = collect_demo_samples(loader, cfg.num_demo_samples)
 
     generator = torch.Generator(device=device).manual_seed(cfg.seed)
@@ -71,17 +83,22 @@ def train(cfg: Config, models, loader):
             if (cfg.validation_steps and global_step > 0
                     and global_step % cfg.validation_steps == 0):
                 vm = run_vae_validation(tracker, global_step, vae, demo_samples, cfg)
-                print(f"validation @ step {global_step}: {vm}")
+                if lead:
+                    print(f"validation @ step {global_step}: {vm}")
             clips, _ = batch_to_device(batch, device)
             state, metrics = step_fn(state, clips, generator=generator)
             global_step += 1
             tracker.log_scalars(global_step, {"train_loss": metrics["loss"]})
-            if global_step % 10 == 0 or global_step == 1:
+            if lead and (global_step % 10 == 0 or global_step == 1):
                 print(f"step {global_step} loss {float(metrics['loss']):.5f} "
                       f"({(time.time() - t0) / global_step:.2f}s/step)")
             if global_step % cfg.checkpointing_steps == 0:
-                ckpt.save(global_step, train_state_tree(state))
-    ckpt.save(global_step, train_state_tree(state), wait=True)
+                tree = train_state_tree(state)
+                if lead:
+                    ckpt.save(global_step, tree)
+    tree = train_state_tree(state)
+    if lead:
+        ckpt.save(global_step, tree, wait=True)
     ckpt.close()
     tracker.finish()
     return state

@@ -17,6 +17,11 @@ As in the JAX tool, the synthetic dataset means the tiny models, and a
 resumed run draws its noise anew from ``--seed`` and starts the loader from
 its first batch. ``main`` builds the models and the loader and hands them to
 ``train``. The tool runs on the card unless ``--device`` says otherwise.
+
+Under ``torchrun --nproc_per_node N`` it trains data parallel over
+``--mesh_data`` / ``--mesh_frame`` (``tools.common.train_mesh``): every rank
+reads the same loader and keeps its rows of each global batch, and only rank
+0 writes the tracker, the checkpoints and the export.
 """
 
 from __future__ import annotations
@@ -40,7 +45,16 @@ from ..train import (
 )
 from ..train.observability import Tracker, collect_demo_samples, run_validation
 from ..utils.config import Config, parse_args
-from .common import batch_to_device, build_models, resume, train_state_tree
+from .common import (
+    SilentTracker,
+    batch_to_device,
+    build_models,
+    leads,
+    resume,
+    train_mesh,
+    train_state_tree,
+    whole,
+)
 
 
 def train(cfg: Config, models, loader):
@@ -62,6 +76,15 @@ def train(cfg: Config, models, loader):
     if cfg.gradient_accumulation_steps > 1:
         tx = MultiSteps(tx, cfg.gradient_accumulation_steps)
     tx = MasterWeights(tx, start=models["masters"].pop("ctrl"))
+    state = init_train_state(ctrl.requires_grad_(True), tx)
+
+    ckpt = CheckpointManager(os.path.join(cfg.output_dir, "checkpoints"),
+                             max_to_keep=cfg.checkpoints_total_limit)
+    if cfg.resume_from_checkpoint and resume(ckpt, cfg.resume_from_checkpoint, state, tx):
+        print(f"resumed from step {state.step}")
+    mesh, state = train_mesh(cfg, state)
+    if not mesh.active:
+        return None
     step_fn = make_controlnet_train_step(
         models["unet"], ctrl, models["vae"], models["clip"], tx,
         generate_bbox=cfg.generate_bbox,
@@ -70,15 +93,11 @@ def train(cfg: Config, models, loader):
         noise_aug_strength=cfg.noise_aug_strength,
         encode_chunk=cfg.vae_encode_chunk,
         device=device,
+        mesh=mesh,
     )
-    state = init_train_state(ctrl.requires_grad_(True), tx)
 
-    ckpt = CheckpointManager(os.path.join(cfg.output_dir, "checkpoints"),
-                             max_to_keep=cfg.checkpoints_total_limit)
-    if cfg.resume_from_checkpoint and resume(ckpt, cfg.resume_from_checkpoint, state, tx):
-        print(f"resumed from step {state.step}")
-
-    tracker = Tracker(cfg)
+    lead = leads()
+    tracker = Tracker(cfg) if lead else SilentTracker()
     demo_samples = collect_demo_samples(loader, cfg.num_demo_samples)
     val_pipeline = StableVideoControlPipeline(models["unet"], ctrl, models["vae"], models["clip"],
                                               device=device)
@@ -101,16 +120,22 @@ def train(cfg: Config, models, loader):
             global_step += 1
             tracker.log_scalars(
                 global_step, {"train_loss": metrics["loss"], "grad_norm": metrics["grad_norm"]})
-            if global_step % 10 == 0 or global_step == 1:
+            if lead and (global_step % 10 == 0 or global_step == 1):
                 print(f"step {global_step} loss {float(metrics['loss']):.4f} "
                       f"({(time.time() - t0) / global_step:.2f}s/step)")
             if global_step % cfg.checkpointing_steps == 0:
-                ckpt.save(global_step, train_state_tree(state))
-    ckpt.save(global_step, train_state_tree(state), wait=True)
+                tree = train_state_tree(state)
+                if lead:
+                    ckpt.save(global_step, tree)
+    tree = train_state_tree(state)
+    masters = whole(state, state.opt_state["master"])
+    if lead:
+        ckpt.save(global_step, tree, wait=True)
     ckpt.close()
     tracker.finish()
-    save_pipeline(os.path.join(cfg.output_dir, "pipeline"), controlnet=ctrl,
-                  tensors={"controlnet": state.opt_state["master"]}, dtype=torch.float32)
+    if lead:
+        save_pipeline(os.path.join(cfg.output_dir, "pipeline"), controlnet=ctrl,
+                      tensors={"controlnet": masters}, dtype=torch.float32)
     return state
 
 

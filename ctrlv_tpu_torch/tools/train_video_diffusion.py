@@ -30,6 +30,10 @@ As in the JAX tool, the synthetic dataset means the tiny models, and a
 resumed run draws its noise anew from ``--seed`` and starts the loader from
 its first batch. The tool runs on the card unless ``--device`` says
 otherwise.
+
+Under ``torchrun --nproc_per_node N`` it trains data parallel over
+``--mesh_data`` / ``--mesh_frame`` (``tools.common.train_mesh``), as the
+ControlNet trainer does; under ZeRO-1 the EMA is sliced as the masters are.
 """
 
 from __future__ import annotations
@@ -62,7 +66,16 @@ from ..train import (
 )
 from ..train.observability import Tracker, collect_demo_samples, run_validation
 from ..utils.config import Config, parse_args
-from .common import batch_to_device, build_models, resume, train_state_tree
+from .common import (
+    SilentTracker,
+    batch_to_device,
+    build_models,
+    leads,
+    resume,
+    train_mesh,
+    train_state_tree,
+    whole,
+)
 
 
 @contextlib.contextmanager
@@ -123,6 +136,19 @@ def train(cfg: Config, models, loader):
         # the f32 values of what trains; the rest of the f32 UNet is let go
         tx = MasterWeights(tx, start={k: v for k, v in models["masters"].pop("unet").items()
                                       if k in trainable})
+    state = init_train_state(trainable, tx)
+    ema = ema_init(state.opt_state["master"]) if cfg.use_ema else None
+
+    ckpt = CheckpointManager(os.path.join(cfg.output_dir, "checkpoints"),
+                             max_to_keep=cfg.checkpoints_total_limit)
+    if cfg.resume_from_checkpoint and resume(ckpt, cfg.resume_from_checkpoint, state, tx, ema):
+        print(f"resumed from step {state.step}")
+    mesh, state = train_mesh(cfg, state)
+    if not mesh.active:
+        return None
+    if ema is not None and state.shards is not None:
+        ema.params = {k: state.shards.local(k, v).clone() for k, v in ema.params.items()}
+    masters = state.opt_state["master"]
     step_fn = make_svd_train_step(
         unet, models["vae"], models["clip"], tx,
         predict_bbox=cfg.predict_bbox,
@@ -134,25 +160,18 @@ def train(cfg: Config, models, loader):
         partitioned=partitioned,
         encode_chunk=cfg.vae_encode_chunk,
         device=device,
+        mesh=mesh,
     )
-    state = init_train_state(trainable, tx)
-    masters = state.opt_state["master"]
-    ema = ema_init(masters) if cfg.use_ema else None
 
-    ckpt = CheckpointManager(os.path.join(cfg.output_dir, "checkpoints"),
-                             max_to_keep=cfg.checkpoints_total_limit)
-    if cfg.resume_from_checkpoint and resume(ckpt, cfg.resume_from_checkpoint, state, tx, ema):
-        masters = state.opt_state["master"]
-        print(f"resumed from step {state.step}")
-
-    tracker = Tracker(cfg)
+    lead = leads()
+    tracker = Tracker(cfg) if lead else SilentTracker()
     demo_samples = collect_demo_samples(loader, cfg.num_demo_samples)
     val_pipeline = VideoDiffusionPipeline(unet, models["vae"], models["clip"], device=device)
 
     def validation_weights():
         """The EMA weights where it is on, the adapters applied for LoRA."""
         if ema is not None:
-            return swapped_in(state.params, ema.params)
+            return swapped_in(state.params, whole(state, ema.params))
         if cfg.enable_lora:
             return lora_applied(unet, state.params)
         return contextlib.nullcontext()
@@ -170,7 +189,8 @@ def train(cfg: Config, models, loader):
                 with torch.no_grad(), validation_weights():
                     vm = run_validation(tracker, global_step, val_pipeline, demo_samples, cfg,
                                         generator, predict_bbox=cfg.predict_bbox)
-                print(f"validation @ step {global_step}: {vm or 'media logged'}")
+                if lead:
+                    print(f"validation @ step {global_step}: {vm or 'media logged'}")
             clips, bbox = batch_to_device(batch, device)
             state, metrics = step_fn(state, clips, bbox, generator=generator)
             global_step += 1
@@ -178,12 +198,16 @@ def train(cfg: Config, models, loader):
                 ema_update(ema, masters)
             tracker.log_scalars(
                 global_step, {"train_loss": metrics["loss"], "grad_norm": metrics["grad_norm"]})
-            if global_step % 10 == 0 or global_step == 1:
+            if lead and (global_step % 10 == 0 or global_step == 1):
                 print(f"step {global_step} loss {float(metrics['loss']):.4f} "
                       f"({(time.time() - t0) / global_step:.2f}s/step)")
             if global_step % cfg.checkpointing_steps == 0:
-                ckpt.save(global_step, train_state_tree(state, ema))
-    ckpt.save(global_step, train_state_tree(state, ema), wait=True)
+                tree = train_state_tree(state, ema)
+                if lead:
+                    ckpt.save(global_step, tree)
+    tree = train_state_tree(state, ema)
+    if lead:
+        ckpt.save(global_step, tree, wait=True)
     ckpt.close()
     tracker.finish()
 
@@ -191,14 +215,16 @@ def train(cfg: Config, models, loader):
         unet_tensors = merge_lora({k: v.float() for k, v in unet.state_dict().items()},
                                   state.params)
     else:
-        unet_tensors = masters
-    save_pipeline(os.path.join(cfg.output_dir, "pipeline"), unet=unet, vae=models["vae"],
-                  image_encoder=models["clip"], tensors={"unet": unet_tensors},
-                  dtype=torch.float32)
-    if ema is not None:
-        save_pipeline(os.path.join(cfg.output_dir, "pipeline_ema"), unet=unet,
-                      tensors={"unet": ema.params}, dtype=torch.float32)
-    print(f"done at step {global_step}")
+        unet_tensors = whole(state, masters)
+    ema_tensors = None if ema is None else whole(state, ema.params)
+    if lead:
+        save_pipeline(os.path.join(cfg.output_dir, "pipeline"), unet=unet, vae=models["vae"],
+                      image_encoder=models["clip"], tensors={"unet": unet_tensors},
+                      dtype=torch.float32)
+        if ema is not None:
+            save_pipeline(os.path.join(cfg.output_dir, "pipeline_ema"), unet=unet,
+                          tensors={"unet": ema_tensors}, dtype=torch.float32)
+        print(f"done at step {global_step}")
     return state
 
 

@@ -41,9 +41,10 @@ most updates round away.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
-from typing import Callable, Dict, Optional, Union
+from typing import Any, Callable, Dict, Optional, Union
 
 import numpy as np
 import torch
@@ -56,6 +57,28 @@ class TrainState:
     params: Params  # the trainable parameters by name, updated in place
     opt_state: dict
     step: int  # micro-steps taken
+    # the ZeRO-1 plan (``parallel.sharding.Zero1``) where ``shard_train_state``
+    # sliced the optimizer state over a data axis; None where it is whole
+    shards: Any = None
+
+
+# The ZeRO-1 plan of the update that is running, or None. While it is set the
+# optimizers see each sliced parameter, gradient and moment as this rank's
+# slice: elementwise arithmetic needs nothing more, and what is taken over
+# whole tensors (the global norm, the finite test, Adafactor's statistics)
+# reads the other data ranks through it.
+_SHARDS = None
+
+
+@contextlib.contextmanager
+def sharded_update(shards):
+    """Run an optimizer update on the slices of a ZeRO-1 plan."""
+    global _SHARDS
+    prev, _SHARDS = _SHARDS, shards
+    try:
+        yield
+    finally:
+        _SHARDS = prev
 
 
 def named_tensors(params) -> Params:
@@ -142,15 +165,26 @@ def _as(value: float, dtype) -> float:
 
 
 def global_norm(grads: Params) -> torch.Tensor:
-    """sqrt(sum of squares) over all gradients, an f32 scalar on their device."""
+    """sqrt(sum of squares) over all gradients, an f32 scalar on their device.
+    Inside ``sharded_update`` the sliced gradients' squares are summed over
+    the data ranks first."""
     norms = torch._foreach_norm(list(grads.values()), 2, dtype=torch.float32)
-    return torch.linalg.vector_norm(torch.stack(norms))
+    if _SHARDS is None:
+        return torch.linalg.vector_norm(torch.stack(norms))
+    squares = torch.stack(norms) ** 2
+    sliced = torch.tensor([k in _SHARDS for k in grads], device=squares.device)
+    total = _SHARDS.sum(squares[sliced].sum()) + squares[~sliced].sum()
+    return torch.sqrt(total)
 
 
 def _all_finite(grads: Params) -> bool:
-    """No NaN and no Inf in any gradient: their largest magnitude is finite."""
+    """No NaN and no Inf in any gradient: their largest magnitude is finite.
+    Inside ``sharded_update`` every data rank takes the same decision."""
     peaks = torch._foreach_norm(list(grads.values()), float("inf"))
-    return bool(torch.isfinite(torch.stack([p.float() for p in peaks])).all())
+    bad = (~torch.isfinite(torch.stack([p.float() for p in peaks]))).sum().float()
+    if _SHARDS is not None:
+        bad = _SHARDS.sum(bad)
+    return not bool(bad)
 
 
 class AdamW:
@@ -225,7 +259,12 @@ class Adafactor:
     1e-30 beside the squared gradient: the reference's quirk, kept.
 
     A factored leaf keeps ``v_row`` (its shape without the largest axis) and
-    ``v_col`` (without the second largest) in place of a full ``v``."""
+    ``v_col`` (without the second largest) in place of a full ``v``.
+
+    Under ZeRO-1 its state stays whole on every rank: the statistics and the
+    RMS clip are taken over whole tensors, so a sliced gradient is gathered
+    first and the update computed from the full gradient; only the slice of
+    the master that this rank holds is written."""
 
     def __init__(self, schedule, eps, weight_decay, max_grad_norm, decay_rate: float = 0.8,
                  min_dim_size_to_factor: int = 128, clipping_threshold: float = 1.0):
@@ -236,12 +275,14 @@ class Adafactor:
     def init(self, params: Params) -> dict:
         state = {"count": 0, "v_row": {}, "v_col": {}, "v": {}}
         for name, p in params.items():
-            dims = _factored_dims(tuple(p.shape), self.min_dim)
+            # whole under ZeRO-1 too (a reset inside ``sharded_update`` sees slices)
+            shape = tuple(p.shape) if _SHARDS is None else _SHARDS.full_shape(name, p)
+            dims = _factored_dims(shape, self.min_dim)
             if dims is None:
-                state["v"][name] = torch.zeros_like(p)
+                state["v"][name] = p.new_zeros(shape)
             else:
                 d1, d0 = dims
-                keep = lambda drop: [s for i, s in enumerate(p.shape) if i != drop]  # noqa: E731
+                keep = lambda drop: [s for i, s in enumerate(shape) if i != drop]  # noqa: E731
                 state["v_row"][name] = p.new_zeros(keep(d0))
                 state["v_col"][name] = p.new_zeros(keep(d1))
         return state
@@ -255,6 +296,8 @@ class Adafactor:
         clip = not bool(g_norm < self.max_grad_norm)
         for name, p in params.items():
             g = grads[name].float()
+            if _SHARDS is not None:
+                g = _SHARDS.gather(name, g)
             if clip:
                 g = (g / g_norm) * self.max_grad_norm
             sq = g * g + self.eps
@@ -263,7 +306,7 @@ class Adafactor:
                 state["v"][name].copy_(v)
                 update = g * state["v"][name].float() ** -0.5
             else:
-                d1, d0 = _factored_dims(tuple(p.shape), self.min_dim)
+                d1, d0 = _factored_dims(tuple(g.shape), self.min_dim)
                 row, col = state["v_row"][name], state["v_col"][name]
                 row.copy_(decay * row.float() + (1.0 - decay) * sq.mean(dim=d0))
                 col.copy_(decay * col.float() + (1.0 - decay) * sq.mean(dim=d1))
@@ -275,6 +318,8 @@ class Adafactor:
                 continue
             rms = torch.sqrt(update.square().mean())
             update = update / torch.clamp(rms / self.clipping_threshold, min=1.0)
+            if _SHARDS is not None:
+                update = _SHARDS.local(name, update)
             p.copy_(p.float() - (lr * update + self.weight_decay * p.float()))
         state["count"] = count + 1
         return state

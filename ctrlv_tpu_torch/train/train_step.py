@@ -24,6 +24,17 @@ skip connections and the mid block's output). Every random quantity can be
 injected through ``draws``. The JAX package's ``make_svd_grad_step`` and
 ``make_update_step`` split one step into two compiled programs for a
 compile-size limit that does not exist here; they have no counterpart.
+
+Data parallel (``mesh=``, ``parallel/mesh.py``): a step takes the global
+batch on every rank. Each rank draws the global batch's noises and dropout
+uniforms from the shared seeded generator, in the order the one-rank step
+draws them, and keeps the rows of its data index, so that a world of two
+computes what a world of one computes on the same batch, as the JAX step on
+a ``P("data")`` batch does. The gradients and the logged loss are averaged
+over the data axis before the norm, the finite test and the update. Where
+``shard_train_state`` sliced the optimizer state (ZeRO-1), each rank
+updates its slices from the averaged gradient and the sliced parameters
+are gathered after. Ranks of one data index on the frame axis are replicas.
 """
 
 from __future__ import annotations
@@ -35,10 +46,12 @@ import torch
 
 from ..diffusion.scheduler import training_sigma_table
 from ..models.clip_vision import clip_preprocess
+from ..parallel.mesh import AXES, all_reduce
+from ..parallel.sharding import data_parallel_sharding
 from ..pipelines.common import check_generator, resolve_device
 from .loss import conditioning_dropout, edm_denoising_loss, sample_training_sigmas
 from .lora import lora_applied
-from .state import TrainState, global_norm, vae_decoder_predicate
+from .state import TrainState, global_norm, sharded_update, vae_decoder_predicate
 
 DRAWS = ("latent_noise", "init_noise", "cond_noise", "sigma_idx", "noise", "dropout_u")
 # the SVD step: ``rgb_init_noise`` samples the RGB first frame's latent with
@@ -56,6 +69,87 @@ def _parse_draws(draws, names, device) -> dict:
             for k in names}
 
 
+def _encode_chunks(n_frames: int, chunk) -> list:
+    """The frame counts of ``_vae_encode_frames``' sequential calls."""
+    if not chunk or n_frames <= chunk:
+        return [n_frames]
+    while n_frames % chunk:
+        chunk -= 1
+    return [chunk] * (n_frames // chunk)
+
+
+def _fill_draws(draw: dict, specs, generator) -> dict:
+    """The draws the step did not get, drawn from ``generator`` in ``specs``'
+    order, each as the one-rank step draws it: ``(name, kind, shape, dtype,
+    device)`` with kind "randn", "rand", "randint" (shape[0] draws below
+    ``shape[1]``) or "chunks" (one standard-normal draw per VAE call, of
+    ``shape = (counts, latent shape)``)."""
+    for name, kind, shape, dtype, device in specs:
+        if draw.get(name) is not None:
+            continue
+        if kind == "chunks":
+            counts, rest = shape
+            draw[name] = torch.cat([
+                torch.randn((n,) + rest, generator=generator, device=device, dtype=dtype)
+                for n in counts])
+        elif kind == "randint":
+            draw[name] = torch.randint(0, shape[1], (shape[0],), generator=generator,
+                                       device=device)
+        else:
+            fn = torch.randn if kind == "randn" else torch.rand
+            draw[name] = fn(shape, generator=generator, device=device, dtype=dtype)
+    return draw
+
+
+def _local_rows(mesh, batch: int, frames: int, draw: dict, per_frame=()) -> tuple:
+    """(the rows of the global batch this rank computes, the draws cut to
+    them): ``per_frame`` names the draws with one row per frame (B*F, ...)."""
+    if mesh is None or mesh.device_mesh is None:
+        return slice(0, batch), draw
+    rows = data_parallel_sharding(mesh, batch)
+    cut = {}
+    for name, value in draw.items():
+        if value is not None and name in per_frame:
+            value = value[rows.start * frames:rows.stop * frames]
+        elif value is not None:
+            value = value[rows]
+        cut[name] = value
+    return rows, cut
+
+
+def _data_parallel_update(tx, state: TrainState, grads: dict, loss, mesh):
+    """Average the gradients and the loss over the data axis, then the
+    optimizer update: on every parameter, or under ZeRO-1 on this rank's
+    slices, whose parameters are then gathered. Returns (the averaged loss,
+    the global gradient norm)."""
+    if mesh is not None and mesh.device_mesh is not None:
+        names = list(grads)
+        flat = torch.cat([grads[k].reshape(-1).float() for k in names] + [loss.reshape(1).float()])
+        all_reduce(flat, mesh, AXES.data).div_(mesh.n_data)
+        out, at = {}, 0
+        for k in names:
+            g = grads[k]
+            out[k] = flat[at:at + g.numel()].view(g.shape).to(g.dtype)
+            at += g.numel()
+        grads, loss = out, flat[-1].to(loss.dtype)
+    grad_norm = global_norm(grads)
+    shards = state.shards
+    if shards is None:
+        state.opt_state = tx.update(grads, state.opt_state, state.params)
+    else:
+        with sharded_update(shards):
+            state.opt_state = tx.update(shards.local_dict(grads), state.opt_state,
+                                        shards.local_dict(state.params))
+        shards.gather_params(state.params)
+    return loss, grad_norm
+
+
+def _latent_shape(vae, frames) -> tuple:
+    """(h, w, latent channels) of the VAE's latents of (N, H, W, 3) frames."""
+    scale = vae.config.spatial_scale
+    return (frames.shape[-3] // scale, frames.shape[-2] // scale, vae.config.latent_channels)
+
+
 def _gradients(loss, params) -> dict:
     """d loss / d params by name. A parameter the loss does not reach (the
     query and key of a one-token cross-attention) gets zeros, as jax.grad
@@ -71,16 +165,12 @@ def _vae_encode_frames(vae, flat, noise, generator, chunk):
     step's peak memory otherwise. A chunk that does not divide N is reduced
     to the largest divisor of N below it, as in the JAX package. ``noise``
     (N, h, w, 4) is the standard-normal draw, or None to draw it."""
-    n_frames = flat.shape[0]
-    if not chunk or n_frames <= chunk:
-        return vae.encode(flat, noise=noise, generator=generator, sample=True)
-    while n_frames % chunk:
-        chunk -= 1
-    return torch.cat([
-        vae.encode(flat[i:i + chunk], noise=None if noise is None else noise[i:i + chunk],
-                   generator=generator, sample=True)
-        for i in range(0, n_frames, chunk)
-    ])
+    out, at = [], 0
+    for n in _encode_chunks(flat.shape[0], chunk):
+        out.append(vae.encode(flat[at:at + n], noise=None if noise is None else noise[at:at + n],
+                              generator=generator, sample=True))
+        at += n
+    return out[0] if len(out) == 1 else torch.cat(out)
 
 
 def _encode_batch(vae, clip_model, frames, latent_noise, init_noise, generator, scaling,
@@ -109,9 +199,6 @@ def _make_noise_and_condition(device, dropout_prob, fps, motion_bucket_id, noise
         sigma, timesteps = sample_training_sigmas(
             b, sigma_table, generator, device, idx=draw["sigma_idx"])
         noise = draw["noise"]
-        if noise is None:
-            noise = torch.randn(target_latents.shape, generator=generator, device=device,
-                                dtype=torch.float32)
         sigma5 = sigma[:, None, None, None, None]
         noisy = target_latents + noise.float() * sigma5
         inp = noisy / torch.sqrt(sigma5**2 + 1.0)
@@ -159,6 +246,7 @@ def make_svd_train_step(
     partitioned: bool = False,
     encode_chunk: Optional[int] = None,
     device=None,
+    mesh=None,
 ) -> Callable:
     """Stage-1 training. ``state.params`` decides the regime:
 
@@ -182,7 +270,8 @@ def make_svd_train_step(
     and ``dropout_u`` (B,); what it lacks is drawn from ``generator``.
 
     ``device=None`` means the card and raises where there is none. The VAE
-    and CLIP are put in eval mode and asked for no gradient.
+    and CLIP are put in eval mode and asked for no gradient. ``mesh``: data
+    parallel over its data axis (the module's docstring).
     """
     if lora and partitioned:
         raise ValueError("lora and partitioned are two regimes: choose one")
@@ -192,6 +281,7 @@ def make_svd_train_step(
     unet.to(device)
     noise_and_condition = _make_noise_and_condition(
         device, conditioning_dropout_prob, fps, motion_bucket_id, noise_aug_strength)
+    n_sigmas = len(training_sigma_table())
 
     def set_regime(params) -> None:
         """Ask exactly the trained UNet parameters for a gradient."""
@@ -214,9 +304,22 @@ def make_svd_train_step(
         check_generator(generator, device)
         draw = _parse_draws(draws, SVD_DRAWS, device)
         set_regime(state.params)
-        clips, bbox_clips = clips.to(device), bbox_clips.to(device)
         frames = bbox_clips if predict_bbox else clips
         b, f = frames.shape[:2]
+        lat = _latent_shape(vae, frames)
+        init = "rgb_init_noise" if predict_bbox else "init_noise"
+        draw = _fill_draws(draw, [
+            ("latent_noise", "chunks", (_encode_chunks(b * f, encode_chunk), lat), vae.dtype,
+             device),
+            (init, "randn", (b,) + lat, vae.dtype, device),
+            ("sigma_idx", "randint", (b, n_sigmas), None, device),
+            ("noise", "randn", (b, f) + lat, torch.float32, device),
+        ] + ([("dropout_u", "rand", (b,), torch.float32, device)]
+             if conditioning_dropout_prob else []), generator)
+        rows, draw = _local_rows(mesh, b, f, draw, per_frame=("latent_noise",))
+        clips, bbox_clips = clips[rows].to(device), bbox_clips[rows].to(device)
+        frames = bbox_clips if predict_bbox else clips
+        b = frames.shape[0]
 
         with torch.no_grad():
             flat = frames.reshape((b * f,) + frames.shape[2:])
@@ -241,15 +344,14 @@ def make_svd_train_step(
             pred = unet(model_in, timesteps, clip_emb, add_time_ids)
             loss = edm_denoising_loss(pred, noisy, target_latents, sigma)
             grads = _gradients(loss, state.params)
-        grad_norm = global_norm(grads)
-        state.opt_state = tx.update(grads, state.opt_state, state.params)
+        loss, grad_norm = _data_parallel_update(tx, state, grads, loss.detach(), mesh)
         state.step += 1
-        return state, {"loss": loss.detach(), "grad_norm": grad_norm}
+        return state, {"loss": loss, "grad_norm": grad_norm}
 
     return step
 
 
-def make_vae_decoder_train_step(vae, tx, device=None) -> Callable:
+def make_vae_decoder_train_step(vae, tx, device=None, mesh=None) -> Callable:
     """VAE-decoder finetune with the image MSE. ``state.params`` are the
     decoder's parameters alone (``split_trainable(vae,
     vae_decoder_predicate)``): gradients and moments exist only for them, and
@@ -258,7 +360,8 @@ def make_vae_decoder_train_step(vae, tx, device=None) -> Callable:
 
     Returns ``step(state, frames, generator=None, draws=None) -> (state,
     {"loss"})`` for frames (B, F, H, W, 3) in [-1, 1]; ``draws["noise"]``
-    (B*F, h, w, 4) is the latent sampling's standard-normal draw.
+    (B*F, h, w, 4) is the latent sampling's standard-normal draw. ``mesh``:
+    data parallel over its data axis (the module's docstring).
     """
     device = resolve_device(device)
     vae.to(device)
@@ -270,8 +373,12 @@ def make_vae_decoder_train_step(vae, tx, device=None) -> Callable:
         if any(id(p) not in decoder for p in state.params.values()):
             raise ValueError("state.params must hold parameters of the VAE's decoder only: "
                              "split_trainable(vae, vae_decoder_predicate)")
-        frames = frames.to(device)
         b, f = frames.shape[:2]
+        draw = _fill_draws(draw, [("noise", "randn", (b * f,) + _latent_shape(vae, frames),
+                                   vae.dtype, device)], generator)
+        rows, draw = _local_rows(mesh, b, f, draw, per_frame=("noise",))
+        frames = frames[rows].to(device)
+        b = frames.shape[0]
         flat = frames.reshape((b * f,) + frames.shape[2:])
         with torch.no_grad():
             z = vae.encode(flat, noise=draw["noise"], generator=generator, sample=True)
@@ -279,9 +386,9 @@ def make_vae_decoder_train_step(vae, tx, device=None) -> Callable:
             recon = vae.decode(z, f)
             loss = torch.mean((recon.float() - flat.float()) ** 2)
             grads = _gradients(loss, state.params)
-        state.opt_state = tx.update(grads, state.opt_state, state.params)
+        loss, _ = _data_parallel_update(tx, state, grads, loss.detach(), mesh)
         state.step += 1
-        return state, {"loss": loss.detach()}
+        return state, {"loss": loss}
 
     return step
 
@@ -301,6 +408,7 @@ def make_controlnet_train_step(
     scaling_factor: float = 0.18215,
     encode_chunk: Optional[int] = None,
     device=None,
+    mesh=None,
 ) -> Callable:
     """ControlNet-only training: ``state.params`` are the ControlNet's
     parameters (``init_train_state(controlnet, tx)``), updated in place.
@@ -315,7 +423,8 @@ def make_controlnet_train_step(
     ``dropout_u`` (B,); what it lacks is drawn from ``generator``.
 
     ``device=None`` means the card and raises where there is none. The
-    frozen modules are put in eval mode and asked for no gradient.
+    frozen modules are put in eval mode and asked for no gradient. ``mesh``:
+    data parallel over its data axis (the module's docstring).
     """
     device = resolve_device(device)
     for frozen in (unet, vae, clip_model):
@@ -323,13 +432,26 @@ def make_controlnet_train_step(
     controlnet.to(device)
     noise_and_condition = _make_noise_and_condition(
         device, conditioning_dropout_prob, fps, motion_bucket_id, noise_aug_strength)
+    n_sigmas = len(training_sigma_table())
 
     def step(state: TrainState, clips, bbox_clips, generator=None, draws=None):
         check_generator(generator, device)
         draw = _parse_draws(draws, DRAWS, device)
-        clips, bbox_clips = clips.to(device), bbox_clips.to(device)
+        b, f = clips.shape[:2]
+        lat = _latent_shape(vae, clips)
+        chunks = (_encode_chunks(b * f, encode_chunk), lat)
+        draw = _fill_draws(draw, [
+            ("latent_noise", "chunks", chunks, vae.dtype, device),
+            ("init_noise", "randn", (b,) + lat, vae.dtype, device),
+            ("cond_noise", "chunks", chunks, vae.dtype, device),
+            ("sigma_idx", "randint", (b, n_sigmas), None, device),
+            ("noise", "randn", (b, f) + lat, torch.float32, device),
+        ] + ([("dropout_u", "rand", (b,), torch.float32, device)]
+             if conditioning_dropout_prob else []), generator)
+        rows, draw = _local_rows(mesh, b, f, draw, per_frame=("latent_noise", "cond_noise"))
+        clips, bbox_clips = clips[rows].to(device), bbox_clips[rows].to(device)
         target_frames, cond_frames = (bbox_clips, clips) if generate_bbox else (clips, bbox_clips)
-        b, f = target_frames.shape[:2]
+        b = target_frames.shape[0]
 
         with torch.no_grad():
             latents_scaled, init_latent, clip_emb = _encode_batch(
@@ -355,9 +477,8 @@ def make_controlnet_train_step(
                         mid_block_additional_residuals=mid_res)
             loss = edm_denoising_loss(pred, noisy, target_latents, sigma)
         grads = _gradients(loss, state.params)
-        grad_norm = global_norm(grads)
-        state.opt_state = tx.update(grads, state.opt_state, state.params)
+        loss, grad_norm = _data_parallel_update(tx, state, grads, loss.detach(), mesh)
         state.step += 1
-        return state, {"loss": loss.detach(), "grad_norm": grad_norm}
+        return state, {"loss": loss, "grad_norm": grad_norm}
 
     return step

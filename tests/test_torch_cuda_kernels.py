@@ -352,7 +352,7 @@ def test_norm_modules_and_switches_route_to_kernels(cuda):
 
 def test_attention_modules_route_to_new_kernels(cuda):
     """The 640-token self-attention takes the one-pass kernel under "auto"
-    and "pallas" and the plain version under "xla"; the frames-major
+    and "pallas" and the library's attention (SDPA) under "xla"; the frames-major
     transformer takes the frames-major kernel, the seq one the seq kernel,
     and both agree with the all-plain run."""
     torch.manual_seed(0)

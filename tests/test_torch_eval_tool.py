@@ -118,7 +118,10 @@ def test_the_tool_runs_on_the_card_unless_told(monkeypatch, tmp_path):
 
 
 def test_more_than_one_card_is_not_ported(tmp_path):
-    with pytest.raises(NotImplementedError, match="one card"):
+    """A mesh above one rank needs the process group of torchrun: a lone
+    process that asks for one raises and says so (tests/test_torch_dist_tools.py
+    runs the tool on two ranks)."""
+    with pytest.raises(RuntimeError, match="torchrun"):
         eval_overall.main(_config(PortConfig, tmp_path, device="cpu", mesh_data=2))
 
 
