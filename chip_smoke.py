@@ -13,7 +13,8 @@ widths, through its eight hand-written CUDA kernels:
    TF32 switches;
 2. build: the kernels from ctrlv_tpu_torch/csrc with nvcc (sm_90a), one
    nvcc per source, all started together; then, per kernel of csrc/mha.cu
-   (K1 and K8), csrc/geglu_ff.cu (K6) and per convolution kernel of
+   (K1 and K8), csrc/geglu_ff.cu and csrc/geglu_ff_wide.cu (K6; the gate
+   and out kernels of the latter at C = 1280) and per convolution kernel of
    csrc/resblock.cu (K7), its count of wgmma (HGMMA), TMA load (UTMALDG)
    and mma.sync (HMMA) instructions in the built library's SASS;
 3. kernels: each kernel against its plain PyTorch version at the shapes the
@@ -39,15 +40,18 @@ widths, through its eight hand-written CUDA kernels:
    --attention_impl xla (the library's attention at every attention site:
    no launch of K1, K2, K3 or K8), with K4 forced onto each of its paths in
    turn (where the path can take the shape), with K6 (on by default)
-   switched off, with K7 (off by default) switched on, and with all plain;
+   switched off, with K6's C = 1280 route (csrc/geglu_ff_wide.cu) the other
+   way than its default (``max_cin``), for that route's A/B, with K7 (off by
+   default) switched on, and with all plain;
 6. sampler: two timed Box2Video requests: 25 frames at 512x320, CFG 1 -> 3,
    25 Euler steps, decode chunk 8, synthetic bbox frames; then a third,
    untimed, under the shape hooks (below);
 7. overall: a two-stage request: five stage-1 candidates in one batch
    (30 steps, frames-major UNet), cleanup and IoU select on the card, then
-   Box2Video on the winner (25 steps); once with K6 on (its default) and
-   once with K6 off, for its A/B, then once more with K6 on, untimed, under
-   the shape hooks. The result's keys, shapes and ranges and every kernel's
+   Box2Video on the winner (25 steps); first with K6 on, untimed, under the
+   shape hooks, then timed once with K6 on (its default), once with K6 off,
+   for its A/B, and once with K6's C = 1280 route the other way than its
+   default, for that route's A/B. The result's keys, shapes and ranges and every kernel's
    launch count are checked;
 8. train: the ControlNet training step on one clip of 25 frames at 512x320
    ("seq" layout, block checkpointing, encode chunk 5, AdamW with a bf16
@@ -79,8 +83,8 @@ widths, through its eight hand-written CUDA kernels:
    written as a diffusers directory by the port's save_pipeline (GB and
    seconds printed), built from it by the tool's build_models (strict; every
    loaded tensor equal to the written one bit for bit), then the tool's loop
-   over two synthetic clips (25 frames at 512x320) from get_dataloader with
-   two worker processes, 30 + 25 steps, decode chunk 8, its GIFs exported
+   over one synthetic clip (25 frames at 512x320; a second was cut for the
+   time limit) from get_dataloader with two worker processes, 30 + 25 steps, decode chunk 8, its GIFs exported
    where PIL imports. Each request's seconds, loader wait, export seconds,
    scores and peak memory are printed; its outputs and scores are checked, and its launches
    must be [overall]'s with K3's taken by K2 (one "seq" UNet serves both
@@ -124,9 +128,9 @@ widths, through its eight hand-written CUDA kernels:
 13. bench: the measurement tools (ctrlv_tpu_torch.tools.bench, bench_train,
    profile_denoise), each run as a user runs it, in a process of its own
    with a time limit, after [train_svd] has freed the models and before
-   [eval] writes its checkpoint: ``tools.bench --workload overall --runs 2``
+   [eval] writes its checkpoint: ``tools.bench --workload overall --runs 1``
    (its Box2Video line and its overall line), ``tools.bench_train --regime
-   controlnet,lora,full --accum 5 --measure_steps 1`` and
+   controlnet,lora,full --accum 2 --measure_steps 1`` and
    ``tools.profile_denoise --steps 2``. Each JSON line is printed; every one
    must hold its keys with finite values and an MFU in (0, 1), the Box2Video
    clip's launches must be [sampler]'s and the overall request's [overall]'s,
@@ -137,8 +141,8 @@ widths, through its eight hand-written CUDA kernels:
    tree: tools.preprocess_dataset (25 box frames at 512x320, by token),
    tools.dataset_examples (synthetic and DAVIS present, their batches on
    the card), then tools.draw_teaser on models its build_models loads from
-   [eval]'s checkpoint: two overall requests (seeds 9, 10; the tool's third
-   seed is cut for the time limit; 30 + 25 steps, decode chunk 8, two
+   [eval]'s checkpoint: one overall request (seed 9; the tool's other two
+   seeds are cut for the time limit; 30 + 25 steps, decode chunk 8, two
    loader workers), each request's launches
    [eval]'s, its GIFs, overlays and 1600x900 ground-truth plots checked;
    s/request, the loader's first wait, a clip's host seconds, export and
@@ -168,7 +172,8 @@ widths, through its eight hand-written CUDA kernels:
 ``python3 chip_smoke.py --profile [DIR]`` instead builds the models and
 prints one step's device time by kind of kernel and by kernel
 (tools.profile_denoise over torch.profiler; the tables by kernel go to DIR,
-by default output/), with K7 off and on in turns, then K6 off and on.
+by default output/), with K7 off and on in turns, then K6 off and on, then
+K6's C = 1280 route off and on (``K6w``).
 
 Forward hooks on every GroupNorm and LayerNorm count K4's and K5's launches
 by input shape on five paths (an extra, untimed Box2Video request and
@@ -428,6 +433,18 @@ KERNEL_CASES = [
     ("geglu_ff", dict(shape=(999, 640), ln=True), False),
     ("geglu_ff", dict(shape=(100, 320)), False),  # less than one tile of 128 rows
     ("geglu_ff", dict(shape=(129, 640), ln=True), False),  # two tiles of 64 rows and one row
+    # K6 at C = 1280 (csrc/geglu_ff_wide.cu): the Box2Video step (M = 8000, its mid
+    # block 2000), stage 1 (40000, 10000), the training micro-step (4000), with the
+    # LayerNorm in front at the step's two; ragged: one row, a last tile of 105 rows
+    ("geglu_ff", dict(shape=(8000, 1280)), True),
+    ("geglu_ff", dict(shape=(2000, 1280)), True),
+    ("geglu_ff", dict(shape=(40000, 1280)), True),
+    ("geglu_ff", dict(shape=(10000, 1280)), True),
+    ("geglu_ff", dict(shape=(4000, 1280)), True),
+    ("geglu_ff", dict(shape=(8000, 1280), ln=True), True),
+    ("geglu_ff", dict(shape=(2000, 1280), ln=True), True),
+    ("geglu_ff", dict(shape=(1, 1280)), False),
+    ("geglu_ff", dict(shape=(1001, 1280), ln=True), False),
     # The training micro-step (one clip: a batch of 25 frames, "seq" layout)
     # for the older kernels. K2 runs at the two levels with 256 pixels or more;
     # the VAE encoder takes chunks of 5 frames and the first frame alone.
@@ -465,6 +482,8 @@ KERNEL_CASES = [
     ("layer_norm", dict(shape=(32, 768)), True),
     ("geglu_ff", dict(shape=(8192, 320)), True),
     ("geglu_ff", dict(shape=(2048, 640)), True),
+    ("geglu_ff", dict(shape=(512, 1280)), True),
+    ("geglu_ff", dict(shape=(128, 1280)), True),
     # K7, (N, C, H, W) of a same-channel spatial ResBlock: the Box2Video step, the
     # training micro-step and stage 1 at level 0; the deeper levels (a tile spans
     # several samples at 10x16 and 5x8) at the Box2Video step's batch, the training
@@ -494,6 +513,7 @@ GRAD_CASES = [
     ("layer_norm", dict(shape=(64000, 320))),
     ("geglu_ff", dict(shape=(64000, 320))),
     ("geglu_ff", dict(shape=(16000, 640), ln=True)),
+    ("geglu_ff", dict(shape=(4000, 1280))),
     ("resblock", dict(shape=(25, 320, 40, 64))),
     ("resblock", dict(shape=(25, 1280, 5, 8))),
 ]
@@ -554,15 +574,18 @@ def phase_build() -> None:
     for line in info["log"].splitlines():
         if "Used" in line or "spill" in line or "Compiling entry" in line:
             print(f"[build]   {line.strip()}")
-    # K1 and K8 (csrc/mha.cu), K6 (csrc/geglu_ff.cu) and K7's convolutions
-    # (csrc/resblock.cu) are wgmma products fed by TMA: every instantiation
-    # has HGMMA and UTMALDG in its SASS, and no HMMA (mma.sync).
+    # K1 and K8 (csrc/mha.cu), K6 (csrc/geglu_ff.cu, and csrc/geglu_ff_wide.cu's
+    # gate and out kernels at C = 1280) and K7's convolutions (csrc/resblock.cu) are
+    # wgmma products fed by TMA: every instantiation has HGMMA and UTMALDG in its
+    # SASS, and no HMMA (mma.sync).
     sass = subprocess.run([_build.cuda_tool("cuobjdump"), "-sass", info["path"]],
                           capture_output=True, text=True, timeout=300)
     if sass.returncode != 0:
         fail(f"cuobjdump -sass failed: {sass.stderr[-2000:]}")
     ops, fn = ("HGMMA", "UTMALDG", "HMMA"), None
-    counts = {"mha.cu": {}, "geglu_ff.cu": {}, "resblock.cu": {}}
+    # the instantiations each source must hold at least
+    counts = {"mha.cu": {}, "geglu_ff.cu": {}, "geglu_ff_wide.cu": {}, "resblock.cu": {}}
+    least = {"mha.cu": 1, "geglu_ff.cu": 4, "geglu_ff_wide.cu": 2, "resblock.cu": 4}
     for line in sass.stdout.splitlines():
         if "Function :" in line:
             fn = None
@@ -575,6 +598,10 @@ def phase_build() -> None:
                 c, s1, s2 = re.findall(r"\d+", m.group(1))
                 fn = ("geglu_ff.cu", f"geglu_ff_kernel<C {c}, {s1} W1 / {s2} W2 stages, "
                       f"ping-pong {m.group(2)}, LayerNorm {m.group(3)}>")
+            m = re.search(r"20geglu_ff_wide_kernelINS0_4WideILb([01])ELi(\d+)ELi(\d+)EEEE", line)
+            if m:
+                fn = ("geglu_ff_wide.cu", f"geglu_ff_wide_kernel<{('out', 'gate')[int(m.group(1))]}"
+                      f", {m.group(2)} columns a tile, {m.group(3)} stages>")
             m = re.search(r"11conv_kernelILb([01])ELi(\d+)EE", line)
             if m:
                 fn = ("resblock.cu", f"conv_kernel<{('conv2', 'conv1')[int(m.group(1))]}, "
@@ -587,7 +614,7 @@ def phase_build() -> None:
     for source, by_fn in counts.items():
         for name, cnt in by_fn.items():
             print(f"[build] {source} {name}: " + ", ".join(f"{op} {n}" for op, n in cnt.items()))
-        if len(by_fn) < (1 if source == "mha.cu" else 4) or any(
+        if len(by_fn) < least[source] or any(
                 not c["HGMMA"] or not c["UTMALDG"] or c["HMMA"] for c in by_fn.values()):
             fail(f"{source}'s kernels are not wgmma + TMA throughout: {by_fn}")
 
@@ -798,11 +825,20 @@ def phase_kernels() -> dict:
             m, c = spec["shape"]
             plan = geglu_ff._plan(m, c, 4 * c, c, torch.bfloat16)
             same = torch.equal(out, kern())
-            line += (f" plan: {plan.rows} rows a block, steps of {plan.step} inner columns "
-                     f"(first products of {plan.sub}), {plan.w1_stages} W1 / {plan.w2_stages} W2 "
-                     f"stages, ping-pong {plan.ping_pong}, "
-                     f"{plan.smem} bytes of shared memory, {plan.blocks} blocks = "
-                     f"{plan.blocks / SMS:.2f} waves on {SMS} SMs; equal_to_the_bit_twice={same}")
+            if plan.kernel == "wide":
+                line += (f" plan (csrc/geglu_ff_wide.cu): tiles of {plan.rows} rows, gate "
+                         f"{plan.gate_tiles} tiles of {plan.gate_cols} inner columns on "
+                         f"{plan.gate_blocks} blocks ({plan.gate_stages} stages, {plan.gate_smem} "
+                         f"bytes), out {plan.out_tiles} tiles of {plan.out_cols} columns on "
+                         f"{plan.out_blocks} blocks ({plan.out_stages} stages, {plan.out_smem} "
+                         f"bytes); equal_to_the_bit_twice={same}")
+            else:
+                line += (f" plan: {plan.rows} rows a block, steps of {plan.step} inner columns "
+                         f"(first products of {plan.sub}), {plan.w1_stages} W1 / "
+                         f"{plan.w2_stages} W2 stages, ping-pong {plan.ping_pong}, "
+                         f"{plan.smem} bytes of shared memory, {plan.blocks} blocks = "
+                         f"{plan.blocks / SMS:.2f} waves on {SMS} SMs; "
+                         f"equal_to_the_bit_twice={same}")
             if not same:
                 fail(f"{kind} at {spec}: two runs on the same inputs differ")
         if kind in ("group_norm", "layer_norm"):
@@ -855,17 +891,19 @@ def phase_kernels() -> dict:
     k4_forced_paths(gen)
     k4_silu_ulps(gen)
     # A width the gate refuses takes the unfused path in the model; forced, it raises.
-    c, inner = 1280, 5120
-    if geglu_ff._plan(4000, c, inner, c, torch.bfloat16) is not None:
-        fail("K6's gate admits C = 1280")
     zeros = lambda *shape: torch.zeros(shape, device=DEVICE, dtype=torch.bfloat16)  # noqa: E731
-    try:
-        geglu_ff.geglu_ff(zeros(64, c), zeros(2 * inner, c), zeros(2 * inner), zeros(c, inner),
-                          zeros(c))
-    except ValueError as exc:
-        print(f"[kernels] geglu_ff at C = 1280, which its gate refuses, raises when forced: {exc}")
-    else:
-        fail("K6 did not raise on a shape its gate refuses")
+    for c_in, c_out in ((960, 960), (1280, 640)):
+        inner = 4 * c_in
+        if geglu_ff._plan(4000, c_in, inner, c_out, torch.bfloat16) is not None:
+            fail(f"K6's gate admits C_in, C_out = {c_in}, {c_out}")
+        try:
+            geglu_ff.geglu_ff(zeros(64, c_in), zeros(2 * inner, c_in), zeros(2 * inner),
+                              zeros(c_out, inner), zeros(c_out))
+        except ValueError as exc:
+            print(f"[kernels] geglu_ff at C_in, C_out = {c_in}, {c_out}, which its gate refuses, "
+                  f"raises when forced: {exc}")
+        else:
+            fail("K6 did not raise on a shape its gate refuses")
     weight_cache_case(gen)
     # The same for K7: a skip-connected up-block width, and a W that does not divide a tile.
     for shape in ((2, 960, 20, 32), (2, 320, 8, 24)):
@@ -1064,9 +1102,12 @@ def count_modules(net, cls) -> int:
     return sum(isinstance(m, cls) for m in net.modules())
 
 
-def count_routed_ff(net) -> int:
-    """Feed-forwards of ``net`` whose width K6's gate admits."""
+def count_routed_ff(net, max_cin=...) -> int:
+    """Feed-forwards of ``net`` whose width K6's gate admits and that are at
+    most ``max_cin`` wide (None: any; by default K6's setting now)."""
+    max_cin = geglu_ff._MAX_CIN if max_cin is ... else max_cin
     return sum(isinstance(m, layers.FeedForward)
+               and (max_cin is None or m.net[2].out_features <= max_cin)
                and geglu_ff._plan(1, m.net[2].in_features // 4, m.net[2].in_features,
                                   m.net[2].out_features, torch.bfloat16) is not None
                for m in net.modules())
@@ -1101,11 +1142,13 @@ def decode_calls(frames: int, chunk: int, max_frames) -> int:
     return (-(-n_full // per_call) if n_full else 0) + (1 if rem else 0)
 
 
-def expected_launches(models, forwards: dict, temporal: dict, k6: bool = True) -> dict:
+def expected_launches(models, forwards: dict, temporal: dict, k6: bool = True,
+                      max_cin=...) -> dict:
     """Launches a path should make. ``forwards``: calls of each net (for the
     VAE its encoder and decoder apart); ``temporal``: for each UNet or
     ControlNet the temporal kernel it takes and whether its batch puts the
-    mid block over the kernel's gate of 256 pixels; ``k6``: K6's switch."""
+    mid block over the kernel's gate of 256 pixels; ``k6``: K6's switch, and
+    ``max_cin`` its widest routed feed-forward (``count_routed_ff``)."""
     nets = dict(models, enc=models["vae"].encoder, dec=models["vae"].decoder)
     exp = dict.fromkeys(_launch.LAUNCHES, 0)
     for key, calls in forwards.items():
@@ -1118,7 +1161,7 @@ def expected_launches(models, forwards: dict, temporal: dict, k6: bool = True) -
             exp["mha"] += calls * per["mha"]
             exp["flash"] += calls * per["flash"]
             exp[name] += calls * (per["temporal"] + (1 if mid else 0))
-            exp["geglu_ff"] += calls * count_routed_ff(nets[key]) * k6
+            exp["geglu_ff"] += calls * count_routed_ff(nets[key], max_cin) * k6
     return exp
 
 
@@ -1131,6 +1174,10 @@ def make_step(models):
 
 # [step]'s variants that force K4's paths (each where it can take the shape)
 K4_FORCED = {"K4 short": "short", "K4 cluster": "cluster", "K4 two-pass": "two_pass"}
+# The A/B of K6's C = 1280 route (csrc/geglu_ff_wide.cu) in [step] and [overall]:
+# the variant that is not the default, and its max_cin
+K6_WIDE_AB = (("K6 at 1280 off", 640) if geglu_ff.DEFAULT_MAX_CIN is None
+              else ("K6 at 1280 on", None))
 
 
 @torch.no_grad()
@@ -1152,7 +1199,8 @@ def phase_step(models) -> None:
         layer_norm.set_fused_layer_norm(variant != "K5 off")
         # "xla": every attention site to the library's attention (K1-K3 and K8 off)
         attention.set_attention_impl("xla" if variant == "xla" else "auto")
-        geglu_ff.set_fused_geglu_ff(variant != "K6 off")
+        geglu_ff.set_fused_geglu_ff(variant != "K6 off", K6_WIDE_AB[1] if variant == K6_WIDE_AB[0]
+                                    else geglu_ff.DEFAULT_MAX_CIN)
         resblock.set_fused_resblock(variant == "K7 on")
         try:
             if variant == "all plain":
@@ -1168,7 +1216,7 @@ def phase_step(models) -> None:
             resblock.set_fused_resblock(False)
 
     variants = ("all kernels", "K3 off", "K4 off", *K4_FORCED, "K5 off", "xla", "K6 off",
-                "K7 on", "all plain")
+                K6_WIDE_AB[0], "K7 on", "all plain")
     _launch.reset_launch_counts()
     preds = {v: run(v, step) for v in ("all kernels", "all plain")}
     torch.cuda.synchronize()
@@ -1188,6 +1236,20 @@ def phase_step(models) -> None:
     if counts_k6 != dict(expect, geglu_ff=0):
         fail(f"one step with K6 off launched {counts_k6}, expected {dict(expect, geglu_ff=0)}")
     rel_k6 = ((preds["K6 off"] - preds["all plain"]).norm() / preds["all plain"].norm()).item()
+    # K6's C = 1280 route switched the other way: the 1280-wide feed-forwards' launches
+    # come or go, nothing else moves
+    wide_ab, wide_max_cin = K6_WIDE_AB
+    _launch.reset_launch_counts()
+    preds[wide_ab] = run(wide_ab, step)
+    torch.cuda.synchronize()
+    counts_wide = dict(_launch.LAUNCHES)
+    expect_wide = expected_launches(models, {"ctrl": 1, "unet": 1},
+                                    {"ctrl": ("small_mha_fm", False),
+                                     "unet": ("small_mha_fm", False)}, max_cin=wide_max_cin)
+    wide_ff = abs(expect_wide["geglu_ff"] - routed_ff)
+    if counts_wide != expect_wide or not wide_ff:
+        fail(f"one step with {wide_ab} launched {counts_wide}, expected {expect_wide}")
+    rel_wide = ((preds[wide_ab] - preds["all plain"]).norm() / preds["all plain"].norm()).item()
     # K7 on: one launch for every ResBlock its gate admits, whose two norms K4 no longer sees
     _launch.reset_launch_counts()
     preds["K7 on"] = run("K7 on", step)
@@ -1215,6 +1277,9 @@ def phase_step(models) -> None:
         for v in order:
             samples[v].append(run(v, lambda: cuda_time_ms(step, reps=3, warmup=1)))
     ms = {v: float(np.mean(samples[v])) for v in variants}
+    # K6's C = 1280 route A/B: two more medians of each, in turns (on, off, off, on)
+    for v in ("all kernels", wide_ab, wide_ab, "all kernels"):
+        samples[v].append(run(v, lambda: cuda_time_ms(step, reps=3, warmup=1)))
     pred, pred_plain = preds["all kernels"], preds["all plain"]
     rel = ((pred - pred_plain).norm() / pred_plain.norm()).item()
     err = (pred - pred_plain).abs().max().item()
@@ -1226,17 +1291,27 @@ def phase_step(models) -> None:
           f"max_abs_err={err:.3e} |pred|max={pred_plain.abs().max().item():.3e}; "
           f"launches {counts}", flush=True)
     print(f"[step] K6 off vs all plain: rel_l2={rel_k6:.3e}; {routed_ff} launches of geglu_ff a "
-          f"step with K6 on (the feed-forwards at C = 320 and 640; C = 1280 by the gate to the "
-          f"unfused path)", flush=True)
+          f"step with K6 on (max_cin {geglu_ff.DEFAULT_MAX_CIN}), {expect_wide['geglu_ff']} with "
+          f"max_cin {wide_max_cin}", flush=True)
+    on, off = (("all kernels", wide_ab) if geglu_ff.DEFAULT_MAX_CIN is None
+               else (wide_ab, "all kernels"))
+    route = {v: float(np.mean(samples[v])) for v in (on, off)}
+    print(f"[step] K6's C = 1280 route A/B ({wide_ff} feed-forwards a step at C = 1280, "
+          f"csrc/geglu_ff_wide.cu), the mean of four medians of 3 taken in turns: on "
+          f"{route[on]:.1f} ms ({'/'.join(f'{x:.1f}' for x in samples[on])}), off {route[off]:.1f} "
+          f"ms ({'/'.join(f'{x:.1f}' for x in samples[off])}), on - off "
+          f"{route[on] - route[off]:+.1f} ms; {wide_ab} vs all plain: rel_l2={rel_wide:.3e}",
+          flush=True)
     print(f"[step] K7 on vs all plain: rel_l2={rel_k7:.3e}; {counts_k7['resblock']} launches of "
           f"resblock a step ({routed['unet']} same-channel spatial ResBlocks of the UNet, "
           f"{routed['ctrl']} of the ControlNet; every up-block ResBlock has a 1x1 shortcut and "
           f"takes the unfused path), {counts_k7['group_norm']} of group_norm", flush=True)
     print(f"[step] xla vs all plain: rel_l2={rel_xla:.3e}; launches of K1, K2, K3, K8 "
           f"{[counts_xla[k] for k in attn]} (the library's attention at every site)", flush=True)
-    if not (torch.isfinite(pred).all() and max(rel, rel_k6, rel_k7, rel_xla) <= STEP_TOL):
-        fail(f"kernel step differs from the plain step: rel_l2 {rel}, with K6 {rel_k6}, with K7 "
-             f"{rel_k7}, under xla {rel_xla}")
+    if not (torch.isfinite(pred).all()
+            and max(rel, rel_k6, rel_wide, rel_k7, rel_xla) <= STEP_TOL):
+        fail(f"kernel step differs from the plain step: rel_l2 {rel}, with K6 {rel_k6}, "
+             f"{wide_ab} {rel_wide}, with K7 {rel_k7}, under xla {rel_xla}")
 
 
 @torch.no_grad()
@@ -1437,10 +1512,11 @@ def phase_sampler(models, card: str) -> dict:
 
 
 def phase_overall(models, card: str) -> dict:
-    """Two two-stage requests with the JAX package's defaults (five
-    candidates, 30 + 25 steps, decode chunk 8): K6 on, its default (this
-    slice's main path, whose launches are returned), then K6 off, for its
-    A/B."""
+    """Three timed two-stage requests with the JAX package's defaults (five
+    candidates, 30 + 25 steps, decode chunk 8), after an untimed one under the
+    shape hooks: K6 on, its default (this slice's main path, whose launches are
+    returned), then K6 off, for its A/B, then K6's C = 1280 route the other way
+    than its default, for that route's A/B."""
     bbox = VideoDiffusionPipeline(models["unet1"], models["vae"], models["clip"])
     ctrl = StableVideoControlPipeline(models["unet"], models["ctrl"], models["vae"],
                                       models["clip"])
@@ -1469,9 +1545,18 @@ def phase_overall(models, card: str) -> dict:
                     num_frames=FRAMES, stage1_steps=STAGE1_STEPS, stage2_steps=STAGE2_STEPS,
                     decode_chunk_size=CHUNK, max_decode_frames=MAX_DECODE_FRAMES)
 
-    results = {}
-    for k6 in (True, False):
-        geglu_ff.set_fused_geglu_ff(k6)
+    # K4's and K5's launches by input shape: a first request (K6 on), untimed, under the
+    # hooks; it also takes the first request's set-up off the timed ones
+    _launch.reset_launch_counts()
+    with launches_by_shape("overall", models.values()):
+        request()
+    hooked = dict(_launch.LAUNCHES)
+    results, seconds = {}, {}
+    default = "K6 on (default)"
+    for tag, k6, max_cin in ((default, True, geglu_ff.DEFAULT_MAX_CIN),
+                             ("K6 off", False, geglu_ff.DEFAULT_MAX_CIN),
+                             (K6_WIDE_AB[0], True, K6_WIDE_AB[1])):
+        geglu_ff.set_fused_geglu_ff(k6, max_cin)
         torch.cuda.reset_peak_memory_stats()
         torch.cuda.synchronize()
         _launch.reset_launch_counts()
@@ -1485,7 +1570,6 @@ def phase_overall(models, card: str) -> dict:
         counts = dict(_launch.LAUNCHES)
         peak = torch.cuda.max_memory_allocated() / 2**30
         select = secs - stage_secs["stage1"] - stage_secs["stage2"]
-        tag = "K6 on (default)" if k6 else "K6 off"
         print(f"[overall] {tag}: {n} candidates x {FRAMES} frames at {W}x{H}: {secs:.3f} "
               f"s/request = stage 1 {stage_secs['stage1']:.3f} s ({STAGE1_STEPS} steps, UNet "
               f"batch {2 * n}x{FRAMES}) + select {select:.3f} s + stage 2 "
@@ -1512,17 +1596,18 @@ def phase_overall(models, card: str) -> dict:
              "unet1": STAGE1_STEPS, "dec": decode_calls(FRAMES, CHUNK, MAX_DECODE_FRAMES) * 2},
             {"ctrl": ("small_mha", False), "unet": ("small_mha", False),
              "unet1": ("small_mha_fm", 2 * n * 40 >= 256)},
-            k6=k6,
+            k6=k6, max_cin=max_cin,
         )
         check_launches(f"the overall request with {tag}", counts, expect)
-        results[k6] = counts
-    # K4's and K5's launches by input shape: a third request (K6 on), untimed, under the hooks
-    _launch.reset_launch_counts()
-    with launches_by_shape("overall", models.values()):
-        request()
-    check_launches("the overall request under the shape hooks", dict(_launch.LAUNCHES),
-                   results[True])
-    return results[True]
+        results[tag] = counts
+        seconds[tag] = secs
+    on, off = ((default, K6_WIDE_AB[0]) if geglu_ff.DEFAULT_MAX_CIN is None
+               else (K6_WIDE_AB[0], default))
+    print(f"[overall] K6's C = 1280 route A/B: on {seconds[on]:.3f} s/request, off "
+          f"{seconds[off]:.3f}, on - off {seconds[on] - seconds[off]:+.3f} s; geglu_ff launches "
+          f"on {results[on]['geglu_ff']}, off {results[off]['geglu_ff']}", flush=True)
+    check_launches("the overall request under the shape hooks", hooked, results[default])
+    return results[default]
 
 
 class KeepGradients:
@@ -2053,8 +2138,9 @@ def phase_train_svd(models, card: str) -> dict:
     return path_counts
 
 
-# The eval entry point: synthetic requests answered, loader worker processes
-EVAL_SAMPLES, EVAL_WORKERS = 2, 2
+# The eval entry point: synthetic requests answered (a second one, the same path with
+# the loader warm, is cut for the time limit), loader worker processes
+EVAL_SAMPLES, EVAL_WORKERS = 1, 2
 BUILD_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
 
 
@@ -2117,7 +2203,7 @@ def phase_eval(card: str, overall: dict, ckpt: str) -> dict:
     directory into ``ckpt`` with the port's ``save_pipeline`` (the later phases
     build from it too); the models built from it by the tool's
     ``build_models`` (strict, every tensor checked against the one written,
-    bit for bit); then the tool's loop over two synthetic clips of 25 frames
+    bit for bit); then the tool's loop over EVAL_SAMPLES synthetic clips of 25 frames
     at 512x320 from ``get_dataloader`` with two worker processes, with the JAX
     tool's defaults (30 + 25 steps, decode chunk 8). Each request's output,
     scores and launches are checked; its launches are ``[overall]``'s with
@@ -2795,7 +2881,7 @@ def phase_eval_metrics(card: str, ckpt: str) -> dict:
 # real CAM_FRONT intrinsics (1600x900); the teaser tool's seeds a clip
 # the tool draws NUM_SEEDS = 3 seeds a clip; two keep the run inside its time
 # limit beside [dist] (the third repeats the same request with another seed)
-TEASER_RAW_FRAMES, TEASER_KEY_EVERY, TEASER_SEEDS = 49, 6, 2
+TEASER_RAW_FRAMES, TEASER_KEY_EVERY, TEASER_SEEDS = 49, 6, 1
 NUSC_INTRINSIC = [[1266.417, 0.0, 816.267], [0.0, 1266.417, 491.507], [0.0, 0.0, 1.0]]
 # instance: (category, size w l h, centre (x, y, z) at keyframe 0, its velocity
 # a keyframe, yaw a keyframe in radians, the keyframes it is annotated at)
@@ -3039,13 +3125,15 @@ def phase_teaser(card: str, overall: dict, ckpt: str) -> dict:
         torch.cuda.empty_cache()
 
 
-# timed requests of each workload: two leave room in the time limit for [baseline] and [legacy]
-BENCH_TIMED_RUNS = 2
+# timed Box2Video requests of tools.bench, and micro-steps of tools.bench_train's timed
+# update: one and two leave room in the time limit for [baseline], [legacy] and K6's
+# C = 1280 A/B
+BENCH_TIMED_RUNS, BENCH_TRAIN_ACCUM = 1, 2
 # [bench]: the measurement tools, each a process of its own with its time limit in seconds
 BENCH_RUNS = (
     ("bench", ("--workload", "overall", "--runs", str(BENCH_TIMED_RUNS)), 400),
-    ("bench_train", ("--regime", "controlnet,lora,full", "--accum", "5", "--measure_steps", "1"),
-     500),
+    ("bench_train", ("--regime", "controlnet,lora,full", "--accum", str(BENCH_TRAIN_ACCUM),
+                     "--measure_steps", "1"), 500),
     ("profile_denoise", ("--steps", "2", "--top", "12"), 300),
 )
 BENCH_METRICS = ("box2video_25f_512x320_sec_per_clip",
@@ -3107,7 +3195,7 @@ def phase_bench(card: str, paths: dict) -> None:
     """The measurement tools as a user runs them, each in a process of its own
     while this one holds no model: ``tools.bench --workload overall`` (its
     Box2Video line, median of BENCH_TIMED_RUNS runs, and its overall line), ``tools.bench_train``
-    (ControlNet, LoRA and full finetune at accumulation 5, one timed update
+    (ControlNet, LoRA and full finetune at accumulation BENCH_TRAIN_ACCUM, one timed update
     each) and ``tools.profile_denoise`` (2 steps). Every line must hold its
     keys with finite values and an MFU in (0, 1); a clip's launches must be
     [sampler]'s and a request's [overall]'s, and a clip's FLOPs the count the
@@ -3147,7 +3235,8 @@ def phase_bench(card: str, paths: dict) -> None:
         if "error" in line:
             fail(f"tools.bench_train {line['regime']}: {line['error']}")
         check_line(f"tools.bench_train {line['regime']}", line, TRAIN_KEYS, line["mfu"])
-        if line["accum"] != 5 or len(line["micro_steps_s"]) != 5:
+        if (line["accum"] != BENCH_TRAIN_ACCUM
+                or len(line["micro_steps_s"]) != BENCH_TRAIN_ACCUM):
             fail(f"tools.bench_train {line['regime']}: accum {line['accum']}, "
                  f"{len(line['micro_steps_s'])} timed micro-steps")
 
@@ -3167,15 +3256,19 @@ def profile_step(models, card: str, out_dir: str) -> None:
     """A reading, not a check: the device time of one ControlNet+UNet step by
     kind of kernel and by kernel (``tools.profile_denoise``), with K7 off and
     on in turns (off, on, on, off; K6 on, its default), then K6 off and on the
-    same way (K7 off); the tables by kernel go to
-    ``out_dir``/step_profile_{k7,k6}_{off,on}.txt."""
+    same way (K7 off), then K6's C = 1280 route (``max_cin`` 640 and None) the
+    same way; the tables by kernel go to
+    ``out_dir``/step_profile_{k7,k6,k6w}_{off,on}.txt."""
     step, _, _ = make_step(models)
     bench.set_temporal_layout((models["ctrl"], models["unet"]), "frames_major")
     step_device_ms = {}
     os.makedirs(out_dir, exist_ok=True)
-    for variant in ("K7 off", "K7 on", "K7 on", "K7 off", "K6 off", "K6 on", "K6 on", "K6 off"):
+    for variant in ("K7 off", "K7 on", "K7 on", "K7 off", "K6 off", "K6 on", "K6 on", "K6 off",
+                    "K6w off", "K6w on", "K6w on", "K6w off"):
         resblock.set_fused_resblock(variant == "K7 on")
-        if variant.startswith("K6"):
+        if variant.startswith("K6w"):
+            geglu_ff.set_fused_geglu_ff(True, None if variant == "K6w on" else 640)
+        elif variant.startswith("K6"):
             geglu_ff.set_fused_geglu_ff(variant == "K6 on")
         try:
             ms = cuda_time_ms(step, reps=3, warmup=2)
@@ -3421,7 +3514,8 @@ def phase_legacy(card: str) -> dict:
         fail(f"[legacy] the UNet2D's object tokens moved its output by {moved}")
     print(f"[legacy] UNet2D: object tokens + 1 move the output by {moved:.3e} relative L2; "
           f"routed sites: {expect['group_norm']} GroupNorms, {expect['layer_norm']} LayerNorms, "
-          f"{expect['geglu_ff']} feed-forwards at C = 320 and 640", flush=True)
+          f"{expect['geglu_ff']} feed-forwards at C = 320, 640 and 1280 (max_cin "
+          f"{geglu_ff._MAX_CIN})", flush=True)
     for k in totals:
         totals[k] += got[k]
     del unet
@@ -3546,7 +3640,7 @@ def main() -> None:
               "eval_gen": kind not in ("small_mha_fm", "resblock"),
               "teaser": kind not in ("small_mha_fm", "resblock"),
               # the baseline's ImageEncoder (VAE encoder, CLIP) and the legacy models:
-              # the norms, and K6 at the UNet2D's C = 320 and 640; attention heads of
+              # the norms, and K6 at the UNet2D's C = 320, 640 and 1280; attention heads of
               # 40-160 (UNet2D), 100 (bbox attention) and 80 (CLIP) take the plain path
               "baseline": kind in ("group_norm", "layer_norm"),
               "legacy": kind in ("group_norm", "layer_norm", "geglu_ff")}

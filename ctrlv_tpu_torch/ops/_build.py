@@ -57,6 +57,8 @@ _SIGNATURES = {
     "ctrlv_geglu_ff_fwd": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
     # x, gamma, beta, w1, b1, w2, b2, y, rows, width, inner, eps
     "ctrlv_geglu_ff_ln_fwd": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _P),
+    # x, w1, b1, w2, b2, act (the scratch), y, rows, width, inner
+    "ctrlv_geglu_ff_wide_fwd": (*(_P,) * 7, _I, _I, _I, _P),
     # x, g1, b1, re-laid w1, wb1, temb, g2, b2, re-laid w2, wb2, y, then the scratch h,
     # stats1, stats2; n, c, height, width, groups, params are bf16, temb is bf16, eps
     "ctrlv_resblock_fwd": (*(_P,) * 14, _I, _I, _I, _I, _I, _I, _I, _F, _P),

@@ -43,7 +43,7 @@ KERNEL_KINDS = (
                           "namespace)::relayout_kernel")),
     ("K4 (group_norm.cu)", ("namespace)::gn_",)),
     ("K5 (layer_norm.cu)", ("namespace)::ln_",)),
-    ("K6 (geglu_ff.cu)", ("geglu_ff_kernel",)),
+    ("K6 (geglu_ff.cu, geglu_ff_wide.cu)", ("geglu_ff_kernel", "geglu_ff_wide_kernel")),
     ("cuDNN NCHW<->NHWC transforms", ("nchwToNhwc", "nhwcToNchw")),
     ("convolutions (cuDNN)", ("cudnn", "implicit_gemm", "conv")),
     ("matmuls (cuBLAS)", ("nvjet", "gemm", "cutlass")),

@@ -388,9 +388,9 @@ def test_attention_modules_route_to_new_kernels(cuda):
     torch.cuda.synchronize()
 
 
-def _ff_operands(m, c, device, seed=0, ln=False):
+def _ff_operands(m, c, device, seed=0, ln=False, inner=None):
     gen = torch.Generator(device=device).manual_seed(seed)
-    inner = 4 * c
+    inner = inner or 4 * c
 
     def draw(shape, scale):
         return (scale * torch.randn(shape, generator=gen, device=device)).bfloat16()
@@ -422,15 +422,38 @@ def test_geglu_ff_kernel_matches_plain(cuda, m, c, ln):
     assert torch.equal(out, fn(*ops))  # no float atomics: the same bits twice
 
 
+# C = 1280 (csrc/geglu_ff_wide.cu): tiles of 128 rows x 128 inner columns (the gate
+# kernel) and x 160 columns of y (the out kernel). One row, a ragged last tile, the
+# Box2Video step's M = 2000 and 8000, the training micro-step's 4000, the legacy
+# UNet2D's 512 and 128, and an inner width that leaves half a gate tile.
+@pytest.mark.parametrize("ln", [False, True], ids=["ff", "ff_ln"])
+@pytest.mark.parametrize("m,inner", [(1, 5120), (129, 5120), (1001, 5120), (2000, 5120),
+                                     (8000, 5120), (4000, 5120), (512, 5120), (128, 5120),
+                                     (300, 1344)])
+def test_geglu_ff_wide_kernels_match_plain(cuda, m, inner, ln):
+    ops = _ff_operands(m, 1280, cuda, seed=m, ln=ln, inner=inner)
+    fn, plain = ((geglu_ff.geglu_ff_ln, geglu_ff.geglu_ff_ln_plain) if ln
+                 else (geglu_ff.geglu_ff, geglu_ff.geglu_ff_plain))
+    assert geglu_ff._plan(m, 1280, inner, 1280, torch.bfloat16).kernel == "wide"
+    before = dict(_launch.LAUNCHES)
+    out = fn(*ops)
+    torch.cuda.synchronize()
+    # one launch of geglu_ff a call, whatever kernels it runs (K5's for the LayerNorm too)
+    assert _launch.LAUNCHES == dict(before, geglu_ff=before["geglu_ff"] + 1)
+    assert out.shape == (m, 1280) and out.dtype == torch.bfloat16
+    assert_close(out, plain(*ops))
+    assert torch.equal(out, fn(*ops))
+
+
 def test_geglu_ff_raises_instead_of_falling_back(cuda):
     x, w1, b1, w2, b2 = _ff_operands(64, 320, cuda)
     with pytest.raises(TypeError):  # f32 rows: the kernel takes bf16
         geglu_ff.geglu_ff(x.float(), w1, b1, w2, b2)
     with pytest.raises(ValueError):  # not contiguous
         geglu_ff.geglu_ff(x.t().contiguous().t(), w1, b1, w2, b2)
-    wide = _ff_operands(64, 1280, cuda)
-    with pytest.raises(ValueError):  # the gate refuses C = 1280: forcing it raises
-        geglu_ff.geglu_ff(*wide)
+    other = _ff_operands(64, 960, cuda)
+    with pytest.raises(ValueError):  # the gate refuses C = 960: forcing it raises
+        geglu_ff.geglu_ff(*other)
     with pytest.raises(ValueError):  # w2 of another inner width
         geglu_ff.geglu_ff(x, w1, b1, w2[:, :640].contiguous(), b2)
 
@@ -440,21 +463,27 @@ def test_feed_forward_module_routes_to_the_kernel(cuda):
     ff = layers.FeedForward(320).to(cuda, torch.bfloat16)
     wide = layers.FeedForward(1280).to(cuda, torch.bfloat16)
     x = torch.randn(2, 300, 320, device=cuda, dtype=torch.bfloat16)
-    default = geglu_ff._ENABLED
+    default = geglu_ff._ENABLED, geglu_ff._MAX_CIN
+    x_wide = torch.randn(2, 8, 1280, device=cuda, dtype=torch.bfloat16)
     with torch.no_grad():
         try:
             geglu_ff.set_fused_geglu_ff(False)
             off = ff(x)
-            geglu_ff.set_fused_geglu_ff(True)
+            geglu_ff.set_fused_geglu_ff(True, max_cin=640)
             _launch.reset_launch_counts()
             out = ff(x)
-            wide(torch.randn(2, 8, 1280, device=cuda, dtype=torch.bfloat16))  # by the gate
+            wide(x_wide)  # over max_cin: the unfused path
             assert _launch.LAUNCHES["geglu_ff"] == 1
+            geglu_ff.set_fused_geglu_ff(True, max_cin=None)
+            out_wide = wide(x_wide)  # the C = 1280 kernels
+            assert _launch.LAUNCHES["geglu_ff"] == 2
             with _launch.plain_kernels():
                 plain = ff(x)
-            assert _launch.LAUNCHES["geglu_ff"] == 1
+                plain_wide = wide(x_wide)
+            assert _launch.LAUNCHES["geglu_ff"] == 2
         finally:
-            geglu_ff.set_fused_geglu_ff(default)
+            geglu_ff.set_fused_geglu_ff(*default)
+    assert_close(out_wide, plain_wide)
     torch.cuda.synchronize()
     assert out.shape == x.shape
     assert_close(out, plain)

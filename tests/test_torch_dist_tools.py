@@ -7,7 +7,8 @@
 - ``eval_overall`` with ``--mesh_frame 2``: the one-rank summary.
 
 The ranks are spawned processes that call each command's ``main``
-(``tests/torch_dist_cases.py::tool_case``).
+(``tests/torch_dist_cases.py::tool_case``); the one-rank run goes on in the
+test's own process while they run.
 
 Tolerance: f32 (``--mixed_precision no``) on the CPU. Checkpoint tensors to
 1e-6 absolute, as the data-parallel step in ``tests/test_torch_parallel.py``
@@ -15,6 +16,7 @@ Tolerance: f32 (``--mixed_precision no``) on the CPU. Checkpoint tensors to
 """
 
 import os
+from concurrent.futures import ThreadPoolExecutor
 
 import torch
 
@@ -47,13 +49,22 @@ def _assert_trees_close(got, want, path=""):
         assert got == want, path
 
 
+def _beside_two_ranks(tmp_path, args, one_rank):
+    """``tool_case(*args)`` on two spawned ranks while ``one_rank()`` runs here."""
+    with ThreadPoolExecutor(1) as pool:
+        ranks = pool.submit(spawn, cases.tool_case, 2, "cpu", args, store_dir=str(tmp_path))
+        want = one_rank()
+        ranks.result()
+    return want
+
+
 def test_controlnet_trainer_on_two_ranks(tmp_path):
     one, two = tmp_path / "one", tmp_path / "two"
     for steps, extra in ((2, ()), (4, ("--resume_from_checkpoint", "latest"))):
         argv = ("--max_train_steps", steps, *extra)
-        train_video_controlnet.main(parse_args(_trainer_args(one, *argv)))
-        spawn(cases.tool_case, 2, "cpu", ("train_video_controlnet",
-                                          _trainer_args(two, *argv)), store_dir=str(tmp_path))
+        _beside_two_ranks(tmp_path, ("train_video_controlnet", _trainer_args(two, *argv)),
+                          lambda: train_video_controlnet.main(
+                              parse_args(_trainer_args(one, *argv))))
         for step in range(2, steps + 1, 2):
             want = CheckpointManager(str(one / "checkpoints")).restore(step)
             got = CheckpointManager(str(two / "checkpoints")).restore(step)
@@ -67,11 +78,10 @@ def test_eval_overall_frame_sharded_on_two_ranks(tmp_path):
     argv = ["--dataset_name", "synthetic", "--device", "cpu", "--mixed_precision", "no",
             "--clip_length", "3", "--train_H", "16", "--train_W", "16",
             "--num_inference_steps", "2", "--decode_chunk_size", "3", "--num_demo_samples", "1"]
-    want = eval_overall.main(parse_args(argv + ["--output_dir", str(tmp_path / "one")]))
     out = tmp_path / "two"
-    spawn(cases.tool_case, 2, "cpu",
-          ("eval_overall", argv + ["--mesh_frame", "2", "--output_dir", str(out)]),
-          store_dir=str(tmp_path))
+    want = _beside_two_ranks(
+        tmp_path, ("eval_overall", argv + ["--mesh_frame", "2", "--output_dir", str(out)]),
+        lambda: eval_overall.main(parse_args(argv + ["--output_dir", str(tmp_path / "one")])))
     for r in range(2):
         got = torch.load(out / "ranks" / f"rank{r}.pt", weights_only=False)
         assert sorted(got) == sorted(want)

@@ -50,19 +50,19 @@ def jax_switch_on():
         jax_ff.set_fused_geglu_ff(False)
 
 
-def _operands(seed, ln):
+def _operands(seed, ln, m=M, c=C, inner=INNER):
     rng = np.random.default_rng(seed)
     ops = {
-        "x": (1.5 * rng.standard_normal((M, C)) + (0.3 if ln else 0.0)),
-        "w1": rng.standard_normal((C, 2 * INNER)) * 0.05,
-        "b1": rng.standard_normal(2 * INNER) * 0.1,
-        "w2": rng.standard_normal((INNER, C)) * 0.05,
-        "b2": rng.standard_normal(C) * 0.1,
+        "x": (1.5 * rng.standard_normal((m, c)) + (0.3 if ln else 0.0)),
+        "w1": rng.standard_normal((c, 2 * inner)) * 0.05,
+        "b1": rng.standard_normal(2 * inner) * 0.1,
+        "w2": rng.standard_normal((inner, c)) * 0.05,
+        "b2": rng.standard_normal(c) * 0.1,
     }
     if ln:
-        ops["lng"] = 1.0 + 0.2 * rng.standard_normal(C)
-        ops["lnb"] = 0.1 * rng.standard_normal(C)
-    r = rng.standard_normal((M, C))
+        ops["lng"] = 1.0 + 0.2 * rng.standard_normal(c)
+        ops["lnb"] = 0.1 * rng.standard_normal(c)
+    r = rng.standard_normal((m, c))
     return {k: v.astype(np.float32) for k, v in ops.items()}, r.astype(np.float32)
 
 
@@ -86,8 +86,10 @@ def test_plain_matches_jax_kernel_values_and_gradients(ln, bf16):
 
     jargs = [jnp.asarray(ops[k], jdt) for k in order]
     ref = jax_fn(*jargs)
-    ref_grads = jax.grad(lambda *a: jnp.sum(jax_fn(*a).astype(jnp.float32) * r),
-                         tuple(range(len(order))))(*jargs)
+    # jitted: the Pallas kernel in interpret mode inside one XLA program, whose
+    # gradient compiles in a fraction of the eager one's time
+    ref_grads = jax.jit(jax.grad(lambda *a: jnp.sum(jax_fn(*a).astype(jnp.float32) * r),
+                                 tuple(range(len(order)))))(*jargs)
 
     tdt = torch.bfloat16 if bf16 else torch.float32
     targs = {k: torch.from_numpy(ops[k]).to(tdt) for k in order}
@@ -105,6 +107,45 @@ def test_plain_matches_jax_kernel_values_and_gradients(ln, bf16):
     for k, g, g_ref in zip(order, grads, ref_grads):
         g = g.float().numpy()
         _close(g.T if k in ("w1", "w2") else g, g_ref, bf16, f"gradient of {k}")
+
+
+# C = 1280: the width csrc/geglu_ff_wide.cu takes; 128 rows, which the JAX
+# ``_plan`` tiles. Values in all four cases; the gradient in one (f32, at the
+# tight tolerance), as the C = 128 cases above cover the gradient's arithmetic
+# and each JAX gradient here costs seconds.
+WIDE = (128, 1280, 5120)
+
+
+@pytest.mark.parametrize("bf16", [False, True], ids=["f32", "bf16"])
+@pytest.mark.parametrize("ln", [False, True], ids=["ff", "ff_ln"])
+def test_plain_matches_jax_kernel_at_c1280(ln, bf16):
+    m, c, inner = WIDE
+    ops, r = _operands(10 + int(ln) + 2 * int(bf16), ln, m, c, inner)
+    order = (["x", "lng", "lnb"] if ln else ["x"]) + ["w1", "b1", "w2", "b2"]
+    jdt, tdt = (jnp.bfloat16, torch.bfloat16) if bf16 else (jnp.float32, torch.float32)
+    assert jax_ff._plan(m, c, inner, c, 2 if bf16 else 4) is not None  # the Pallas kernel runs
+    assert port_ff._plan(m, c, inner, c, torch.bfloat16).kernel == "wide"
+    grad = not (ln or bf16)
+
+    def jax_fn(*args):
+        return jax_ff.geglu_ff_ln(*args, 1e-5) if ln else jax_ff.geglu_ff(*args)
+
+    jargs = [jnp.asarray(ops[k], jdt) for k in order]
+    targs = {k: torch.from_numpy(ops[k]).to(tdt) for k in order}
+    for k in ("w1", "w2"):  # nn.Linear keeps the transposes
+        targs[k] = targs[k].t().contiguous().requires_grad_(grad)
+    fn = port_ff.geglu_ff_ln if ln else port_ff.geglu_ff
+    out = fn(*[targs[k] for k in order], *((1e-5,) if ln else ()))
+    assert out.dtype == tdt and out.shape == (m, c)
+    if not grad:
+        _close(out.float().numpy(), jax_fn(*jargs), bf16, "values")
+        return
+    ref, vjp = jax.vjp(jax.jit(jax_fn), *jargs)  # jitted, as above
+    _close(out.detach().numpy(), ref, bf16, "values")
+    ref_grads = vjp(jnp.asarray(r))
+    grads = torch.autograd.grad((out * torch.from_numpy(r)).sum(), [targs["w1"], targs["w2"]])
+    for k, g in zip(("w1", "w2"), grads):
+        _close(g.numpy().T, ref_grads[order.index(k)], bf16, f"gradient of {k}")
 
 
 def test_plain_repeats_the_kernels_roundings():
@@ -143,18 +184,15 @@ def ff_pair_320():
     return _ff_pair(320, 3)
 
 
-@pytest.mark.parametrize("bf16", [False, True], ids=["f32", "bf16"])
-def test_feed_forward_routes_like_jax_with_the_switch_on(jax_switch_on, ff_pair_320, bf16):
-    """bf16 at C = 320: both packages route FeedForward to their fused kernel
-    (the port's, on the CPU, to its plain version). f32: the JAX package
-    still fuses, the port's gate refuses f32 and takes the unfused path."""
-    dim = 320
-    params, port = ff_pair_320[0], copy.deepcopy(ff_pair_320[1])
-    x = np.random.default_rng(4).standard_normal((1, 128, dim)).astype(np.float32)
+def _routes_like_jax(params, port, dim, bf16, seed, max_cin=None):
+    """Both packages' FeedForward on the same input with their switches on (the
+    port's with ``max_cin``), each against the JAX output; returns whether each
+    package routes the call, the calls of the port's fused wrapper, and its
+    outputs with the switch on and off."""
+    x = np.random.default_rng(seed).standard_normal((1, 128, dim)).astype(np.float32)
     jdt = jnp.bfloat16 if bf16 else jnp.float32
-    assert jax_ff.geglu_ff_supported(128, dim, 4 * dim, dim, 2 if bf16 else 4)
-    jmod = jax_layers.FeedForward(dim, dtype=jdt)
-    ref = jmod.apply(params, jnp.asarray(x, jdt))
+    jax_routed = jax_ff.geglu_ff_supported(128, dim, 4 * dim, dim, 2 if bf16 else 4)
+    ref = jax_layers.FeedForward(dim, dtype=jdt).apply(params, jnp.asarray(x, jdt))
 
     tdt = torch.bfloat16 if bf16 else torch.float32
     port = port.to(tdt)
@@ -162,10 +200,10 @@ def test_feed_forward_routes_like_jax_with_the_switch_on(jax_switch_on, ff_pair_
     calls = []
     real = layers.geglu_ff
     layers.geglu_ff = lambda *a: calls.append(a[0].shape) or real(*a)
-    default = port_ff._ENABLED
-    port_ff.set_fused_geglu_ff(True)
+    default = port_ff._ENABLED, port_ff._MAX_CIN
+    port_ff.set_fused_geglu_ff(True, max_cin)
     try:
-        assert port_ff.geglu_ff_supported(128, dim, 4 * dim, dim, tdt) is bf16
+        routed = port_ff.geglu_ff_supported(128, dim, 4 * dim, dim, tdt)
         with torch.no_grad():
             out = port(xt)
             with _launch.plain_kernels():
@@ -175,14 +213,39 @@ def test_feed_forward_routes_like_jax_with_the_switch_on(jax_switch_on, ff_pair_
             off = port(xt)
     finally:
         layers.geglu_ff = real
-        port_ff.set_fused_geglu_ff(default)
-    assert calls == ([(128, dim)] if bf16 else [])  # flattened to (M, C), once
+        port_ff.set_fused_geglu_ff(*default)
     assert out.shape == (1, 128, dim) and out.dtype == tdt
     assert torch.equal(plain, out)  # on the CPU the wrapper is its plain version
     _close(out.float().numpy(), ref, bf16, "switch on")
     _close(off.float().numpy(), ref, bf16, "switch off")
+    return jax_routed, routed, calls, out, off
+
+
+@pytest.mark.parametrize("bf16", [False, True], ids=["f32", "bf16"])
+def test_feed_forward_routes_like_jax_with_the_switch_on(jax_switch_on, ff_pair_320, bf16):
+    """bf16 at C = 320: both packages route FeedForward to their fused kernel
+    (the port's, on the CPU, to its plain version). f32: the JAX package
+    still fuses, the port's gate refuses f32 and takes the unfused path."""
+    params, port = ff_pair_320[0], copy.deepcopy(ff_pair_320[1])
+    jax_routed, routed, calls, out, off = _routes_like_jax(params, port, 320, bf16, 4)
+    assert jax_routed and routed is bf16
+    assert calls == ([(128, 320)] if bf16 else [])  # flattened to (M, C), once
     if bf16:
         assert not torch.equal(off, out)  # erf against tanh gelu, other roundings
+
+
+def test_feed_forward_1280_routes_like_jax_with_the_switch_on(jax_switch_on):
+    """bf16 at C = 1280 (csrc/geglu_ff_wide.cu's width): both packages route
+    FeedForward to their fused kernel; with ``max_cin`` 640 neither does (the
+    JAX package's ``set_fused_geglu_ff(True, max_cin=640)``), and the port's
+    output is its unfused path's, bit for bit."""
+    params, port = _ff_pair(1280, 7)
+    jax_routed, routed, calls, out, off = _routes_like_jax(params, port, 1280, True, 8)
+    assert jax_routed and routed and calls == [(128, 1280)]
+    assert not torch.equal(off, out)
+    jax_ff.set_fused_geglu_ff(True, max_cin=640)
+    jax_routed, routed, calls, out, off = _routes_like_jax(params, port, 1280, True, 8, 640)
+    assert not jax_routed and not routed and calls == [] and torch.equal(out, off)
 
 
 def test_feed_forward_takes_the_chain_where_a_gradient_is_wanted(ff_pair_320):
@@ -225,7 +288,7 @@ def test_feed_forward_takes_the_chain_where_a_gradient_is_wanted(ff_pair_320):
         (640000, 320, 1280, 320, torch.bfloat16, True),  # stage 1
         (999, 640, 2560, 640, torch.bfloat16, True),  # ragged M is masked, not refused
         (1, 320, 64, 320, torch.bfloat16, True),
-        (4000, 1280, 5120, 1280, torch.bfloat16, False),  # a 320 KB accumulator: no block holds it
+        (4000, 1280, 5120, 1280, torch.bfloat16, True),  # training: csrc/geglu_ff_wide.cu
         (64000, 320, 1280, 320, torch.float32, False),
         (64000, 320, 1280, 320, torch.float16, False),
         (64000, 320, 1280, 640, torch.bfloat16, False),  # C_out != C_in
@@ -233,17 +296,41 @@ def test_feed_forward_takes_the_chain_where_a_gradient_is_wanted(ff_pair_320):
         (64000, 128, 512, 128, torch.bfloat16, False),  # a width with no instantiation
         (0, 320, 1280, 320, torch.bfloat16, False),
         (2**31 // 320, 320, 1280, 320, torch.bfloat16, False),  # M*C overflows an int
+        # C = 1280: the Box2Video step (M = 8000, and 2000 in the mid block), stage 1,
+        # the legacy UNet2D, one row, a ragged last tile, half a gate tile of inner
+        (8000, 1280, 5120, 1280, torch.bfloat16, True),
+        (2000, 1280, 5120, 1280, torch.bfloat16, True),
+        (40000, 1280, 5120, 1280, torch.bfloat16, True),
+        (10000, 1280, 5120, 1280, torch.bfloat16, True),
+        (512, 1280, 5120, 1280, torch.bfloat16, True),
+        (128, 1280, 5120, 1280, torch.bfloat16, True),
+        (1, 1280, 64, 1280, torch.bfloat16, True),
+        (1001, 1280, 1344, 1280, torch.bfloat16, True),
+        (4000, 1280, 5120, 1280, torch.float32, False),
+        (4000, 1280, 5120, 640, torch.bfloat16, False),  # C_out != C_in
+        (4000, 1280, 5000, 1280, torch.bfloat16, False),  # inner not a multiple of 64
+        (4000, 960, 3840, 960, torch.bfloat16, False),  # a width with no kernel
+        (2**31 // 1280, 1280, 5120, 1280, torch.bfloat16, False),  # M*C overflows an int
     ],
 )
 def test_gate(m, c_in, inner, c_out, dtype, expect):
+    """The gate, a pure function of shape and dtype, and the routing: the
+    switch, and ``max_cin`` (None: every admitted width; 640: none at 1280)."""
     assert (port_ff._plan(m, c_in, inner, c_out, dtype) is not None) is expect
-    assert port_ff.geglu_ff_supported(m, c_in, inner, c_out, dtype) is expect  # on by default
+    default = port_ff.DEFAULT_MAX_CIN
+    assert port_ff._MAX_CIN == default
+    assert port_ff.geglu_ff_supported(m, c_in, inner, c_out, dtype) is (  # on by default
+        expect and (default is None or c_in <= default))
     try:
+        port_ff.set_fused_geglu_ff(True, max_cin=None)
+        assert port_ff.geglu_ff_supported(m, c_in, inner, c_out, dtype) is expect
+        port_ff.set_fused_geglu_ff(True, max_cin=640)
+        assert port_ff.geglu_ff_supported(m, c_in, inner, c_out, dtype) is (expect and c_in <= 640)
         port_ff.set_fused_geglu_ff(False)
         assert not port_ff.geglu_ff_supported(m, c_in, inner, c_out, dtype)
     finally:
         port_ff.set_fused_geglu_ff(True)
-    assert port_ff._ENABLED is True
+    assert port_ff._ENABLED is True and port_ff._MAX_CIN == default
 
 
 def test_wrappers_reject_other_devices():
@@ -281,20 +368,44 @@ PLANS = [
     ((1001, 320), (128, 32, 32, 8, 2, True, 8)),
     ((999, 640), (64, 32, 64, 3, 1, False, 16)),
     ((129, 640), (64, 32, 64, 3, 1, False, 3)),
+    # C = 1280 (rows a tile, gate and out tile columns and stages, their tiles and
+    # their persistent grids): the Box2Video step, stage 1, training, the legacy
+    # UNet2D, one row, a ragged last tile
+    ((8000, 1280), (128, 128, 160, 4, 6, 2520, 504, 132, 132)),
+    ((2000, 1280), (128, 128, 160, 4, 6, 640, 128, 132, 128)),
+    ((40000, 1280), (128, 128, 160, 4, 6, 12520, 2504, 132, 132)),
+    ((10000, 1280), (128, 128, 160, 4, 6, 3160, 632, 132, 132)),
+    ((4000, 1280), (128, 128, 160, 4, 6, 1280, 256, 132, 132)),
+    ((512, 1280), (128, 128, 160, 4, 6, 160, 32, 132, 32)),
+    ((128, 1280), (128, 128, 160, 4, 6, 40, 8, 40, 8)),
+    ((1, 1280), (128, 128, 160, 4, 6, 40, 8, 40, 8)),
+    ((1001, 1280), (128, 128, 160, 4, 6, 320, 64, 132, 64)),
 ]
 
 
 @pytest.mark.parametrize("shape,want", PLANS, ids=[str(s) for s, _ in PLANS])
 def test_plan_table(shape, want):
     """The tiling as csrc/geglu_ff.cu has it: 128 rows a block at C = 320, 64
-    at C = 640; it fits a block's shared memory, and the registers after
-    setmaxnreg fit the SM's file."""
+    at C = 640; and as csrc/geglu_ff_wide.cu has it at C = 1280: tiles of 128
+    rows, persistent grids of at most one block an SM. It fits a block's shared
+    memory, the registers after setmaxnreg fit the SM's file, and it is the
+    kernel's, whatever the routing (``max_cin``)."""
     m, c = shape
     plan = port_ff._plan(m, c, 4 * c, c, torch.bfloat16)
-    assert tuple(plan[:6]) + (plan.blocks,) == want
-    assert plan.blocks * plan.rows >= m > (plan.blocks - 1) * plan.rows
-    assert plan.smem <= port_ff._SMEM_MAX
+    if plan.kernel == "wide":
+        assert tuple(plan[:5]) + tuple(plan[7:11]) == want
+        assert plan.gate_tiles * plan.gate_cols >= 4 * c * -(-m // plan.rows)
+        assert max(plan.gate_smem, plan.out_smem) <= port_ff._SMEM_MAX
+    else:
+        assert tuple(plan[:6]) + (plan.blocks,) == want
+        assert plan.blocks * plan.rows >= m > (plan.blocks - 1) * plan.rows
+        assert plan.smem <= port_ff._SMEM_MAX
     assert 128 * (port_ff._PRODUCER_REGS + 2 * port_ff._CONSUMER_REGS) <= 65536
+    try:
+        port_ff.set_fused_geglu_ff(True, max_cin=640)
+        assert port_ff._plan(m, c, 4 * c, c, torch.bfloat16) == plan
+    finally:
+        port_ff.set_fused_geglu_ff(True)
 
 
 def test_plan_mirrors_the_source():
@@ -314,6 +425,26 @@ def test_plan_mirrors_the_source():
     # C = 640: x 80 KB, act 8 KB, one W2 stage of 80 KB, three W1 stages of 16 KB
     assert port_ff._plan(16000, 640, 2560, 640, torch.bfloat16).smem == (
         1024 + 81920 + 8192 + 81920 + 3 * 16384 + 8 * 9)
+
+
+def test_wide_plan_mirrors_the_source():
+    """``_WIDE`` and the rows of a tile are csrc/geglu_ff_wide.cu's, its
+    register split is geglu_ff.cu's, and its shared-memory sum gives the same
+    bytes."""
+    text = (Path(port_ff.__file__).parents[1] / "csrc" / "geglu_ff_wide.cu").read_text()
+    (gc, gs), (oc, os_) = port_ff._WIDE["gate"], port_ff._WIDE["out"]
+    assert text.count(f"using GateTile = Wide<true, {gc}, {gs}>;") == 1
+    assert text.count(f"using OutTile = Wide<false, {oc}, {os_}>;") == 1
+    assert text.count(f"constexpr int kBM = {port_ff._WIDE_ROWS};") == 1
+    assert text.count(f"constexpr int kWideC = {port_ff._WIDE_C};") == 1
+    regs = dict(re.findall(r"constexpr int k(Producer|Consumer)Regs = (\d+);", text))
+    assert (int(regs["Producer"]), int(regs["Consumer"])) == (
+        port_ff._PRODUCER_REGS, port_ff._CONSUMER_REGS)
+    plan = port_ff._plan(8000, 1280, 5120, 1280, torch.bfloat16)
+    # gate: four stages of x's 128 rows and W1's 256 (a's and g's); out: six of act's
+    # 128 rows and W2's 160; 128-byte rows, two barriers a stage
+    assert plan.gate_smem == 1024 + 4 * (128 + 256) * 128 + 8 * 8
+    assert plan.out_smem == 1024 + 6 * (128 + 160) * 128 + 8 * 12
 
 
 def test_ab_variants_patch_the_source():

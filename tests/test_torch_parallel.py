@@ -22,6 +22,7 @@ one-rank change (1.8e-4 measured).
 
 import itertools
 import os
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import pytest
@@ -108,13 +109,19 @@ def test_a_mesh_above_one_rank_needs_a_process_group():
         make_train_mesh(3, n_data=2)
 
 
-def _run(tmp_path, name, fn, *args, world=2):
+def _run(tmp_path, name, fn, *args, world=2, beside=None):
+    """``fn`` on ``world`` ranks: what each wrote. ``beside()`` runs in this
+    process while spawned ranks run; then its result comes first."""
     out = str(tmp_path / name)
     if world == 1:
         fn(0, 1, out, *args)
     else:
-        spawn(fn, world, "cpu", (out, *args), store_dir=str(tmp_path))
-    return [torch.load(os.path.join(out, f"rank{r}.pt")) for r in range(world)]
+        with ThreadPoolExecutor(1) as pool:
+            ranks = pool.submit(spawn, fn, world, "cpu", (out, *args), store_dir=str(tmp_path))
+            first = beside() if beside else None
+            ranks.result()
+    runs = [torch.load(os.path.join(out, f"rank{r}.pt")) for r in range(world)]
+    return (first, runs) if beside else runs
 
 
 def _assert_state_close(got, want, path="", atol=1e-6):
@@ -160,8 +167,8 @@ def _assert_matches(run, ref, kind):
 def test_two_ranks_train_as_one(tmp_path, one_rank, kind):
     """Two data ranks, each on half the global batch, replicated optimizer
     state: the one-rank losses, gradient norms, parameters and state."""
-    ref = one_rank(kind)
-    ranks = _run(tmp_path, "two", cases.train_case, kind, False)
+    ref, ranks = _run(tmp_path, "two", cases.train_case, kind, False,
+                      beside=lambda: one_rank(kind))
     for run in ranks:
         assert run["sliced"] == []
         _assert_matches(run, ref, kind)
@@ -174,8 +181,8 @@ def test_zero1_at_two_ranks_equals_one_rank(tmp_path, one_rank, optimizer):
     """ZeRO-1: each rank holds half of every planned moment, accumulated
     gradient and master, along the planned axis; the gathered state and the
     parameters are the one-rank ones."""
-    ref = one_rank("controlnet", optimizer)
-    ranks = _run(tmp_path, "zero1", cases.train_case, "controlnet", True, optimizer)
+    ref, ranks = _run(tmp_path, "zero1", cases.train_case, "controlnet", True, optimizer,
+                      beside=lambda: one_rank("controlnet", optimizer))
     full = cases.sharded_shapes(ref["opt_state"])
     plan = zero1_plan({k: tuple(p.shape) for k, p in ref["params"].items()}, 2,
                       cases.ZERO1_MIN_SIZE)

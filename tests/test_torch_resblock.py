@@ -117,17 +117,25 @@ def test_boundary_impulses_match_jax():
 
 def _jax_grads(args, r):
     fn = lambda *a: jnp.sum(jax_resblock.fused_resblock2d(*a, 8, 1e-6) * r)  # noqa: E731
-    return jax.grad(fn, tuple(range(10)))(*[jnp.asarray(a) for a in args])
+    # jitted: one XLA program, which compiles faster than the eager gradient runs
+    return jax.jit(jax.grad(fn, tuple(range(10))))(*[jnp.asarray(a) for a in args])
+
+
+@pytest.fixture(scope="module")
+def ten_operands():
+    """Inputs, cotangent and the JAX gradients of the ten-operand case, once
+    for both of its routes."""
+    args = inputs(1, 8, 8, 64, seed=1)
+    r = np.random.default_rng(2).standard_normal((1, 8, 8, 64)).astype(np.float32)
+    return args, r, _jax_grads(args, r)
 
 
 @pytest.mark.parametrize("through_function", [False, True], ids=["autograd", "recompute"])
-def test_gradients_of_all_ten_operands_match_jax(through_function):
+def test_gradients_of_all_ten_operands_match_jax(ten_operands, through_function):
     """The JAX function is a custom_vjp that recomputes through its XLA
     reference; the port's wrapper differentiates its plain version, here with
     the plain version standing in for the launch too."""
-    args = inputs(1, 8, 8, 64, seed=1)
-    r = np.random.default_rng(2).standard_normal((1, 8, 8, 64)).astype(np.float32)
-    want = _jax_grads(args, r)
+    args, r, want = ten_operands
     ins = [t.requires_grad_(True) for t in to_port(args)]
     plain = lambda *t: resblock.fused_resblock2d_plain(*t, 8, 1e-6)  # noqa: E731
     if through_function:

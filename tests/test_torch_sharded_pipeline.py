@@ -10,7 +10,9 @@
 - The tiny overall pipeline on a (2, 1) mesh (the five stage-1 candidates 3
   + 2 over the data axis): the one-rank result, the same candidate chosen.
 
-The ranks are spawned processes (``tests/torch_dist_cases.py``).
+The ranks are spawned processes (``tests/torch_dist_cases.py``); the JAX
+reference and the one-rank run are computed in the test's own process while
+they run.
 
 Tolerance: against JAX, the sampler test's 1e-3 absolute on frames in [0, 1]
 (f32, CLIP, two VAE encodes, two ControlNet+UNet steps and the decode, each
@@ -24,6 +26,7 @@ way: the same tolerances on its videos, and 1e-6 on its scores.
 """
 
 import os
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -64,10 +67,6 @@ def test_box2video_frame_sharded_matches_jax(tmp_path):
     rng = np.random.default_rng(7)
     image = rng.uniform(-1, 1, (1, H, W, 3)).astype(np.float32)
     cond = rng.uniform(-1, 1, (1, F, H, W, 3)).astype(np.float32)
-    jax_pipe = JaxPipeline(m["unet"], m["unet_params"], m["ctrl"], m["ctrl_params"],
-                           m["vae"], m["vae_params"], m["clip"], m["clip_params"])
-    ref = np.asarray(jax_pipe(jnp.asarray(image), jnp.asarray(cond),
-                              rng=jax.random.PRNGKey(3), **KW))
     scale = VAEConfig.tiny().spatial_scale
     noise, lat = jax_draws(3, image.shape, (1, F, H // scale, W // scale, 4))
 
@@ -80,9 +79,15 @@ def test_box2video_frame_sharded_matches_jax(tmp_path):
     torch.save(dict(state_dicts=[mod.state_dict() for mod in modules],
                     image=torch.from_numpy(image), cond=torch.from_numpy(cond),
                     image_noise=noise, latents=lat, kwargs=KW), tmp_path / "box2video.pt")
-    cases.pipeline_case(0, 1, str(tmp_path), str(tmp_path / "one"), 1, 1)
-    spawn(cases.pipeline_case, 2, "cpu", (str(tmp_path), str(tmp_path / "two"), 1, 2),
-          store_dir=str(tmp_path))
+    with ThreadPoolExecutor(1) as pool:  # the two ranks run in processes of their own
+        ranks = pool.submit(spawn, cases.pipeline_case, 2, "cpu",
+                            (str(tmp_path), str(tmp_path / "two"), 1, 2), store_dir=str(tmp_path))
+        jax_pipe = JaxPipeline(m["unet"], m["unet_params"], m["ctrl"], m["ctrl_params"],
+                               m["vae"], m["vae_params"], m["clip"], m["clip_params"])
+        ref = np.asarray(jax_pipe(jnp.asarray(image), jnp.asarray(cond),
+                                  rng=jax.random.PRNGKey(3), **KW))
+        cases.pipeline_case(0, 1, str(tmp_path), str(tmp_path / "one"), 1, 1)
+        ranks.result()
     (one,) = _outputs(tmp_path / "one", 1)
     two = _outputs(tmp_path / "two", 2)
     assert np.ptp(ref) > 0.05  # the reference is not a constant clip
@@ -95,8 +100,11 @@ def test_box2video_frame_sharded_matches_jax(tmp_path):
 
 
 def test_overall_data_sharded_chooses_as_one_rank(tmp_path):
-    cases.overall_case(0, 1, str(tmp_path / "one"), 1, 1)
-    spawn(cases.overall_case, 2, "cpu", (str(tmp_path / "two"), 2, 1), store_dir=str(tmp_path))
+    with ThreadPoolExecutor(1) as pool:
+        ranks = pool.submit(spawn, cases.overall_case, 2, "cpu", (str(tmp_path / "two"), 2, 1),
+                            store_dir=str(tmp_path))
+        cases.overall_case(0, 1, str(tmp_path / "one"), 1, 1)
+        ranks.result()
     (one,) = _outputs(tmp_path / "one", 1)
     for run in _outputs(tmp_path / "two", 2):
         assert run["best_guidance"] == one["best_guidance"]
