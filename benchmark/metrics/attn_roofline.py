@@ -1,0 +1,21 @@
+"""The least time of every Attention call of a unit (the benchmark's count of
+its operations and bytes at the configuration's shapes, ``yardstick.py``)
+over the device time of the kernels launched inside the spans around the
+program's ``Attention`` modules, in the traced units."""
+
+LAYER = "kernels"
+UNIT = "%"
+SOURCE = "device_trace"
+MOVES = {"bbox": "s_per_bbox_request"}
+
+
+def read(window):
+    trace = window.trace
+    if trace is None:
+        return None
+    spent = trace.device_s("attention")
+    if not spent:
+        return None
+    _, sites = window.work()
+    least = sum(s.least_s(window.runner.config["dtype"]) for s in sites if s.kind == "attention")
+    return 100.0 * least * window.traced_units / spent
