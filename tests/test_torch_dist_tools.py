@@ -27,6 +27,7 @@ from ctrlv_tpu_torch.utils.config import parse_args
 import torch_dist_cases as cases
 
 torch.set_num_threads(1)
+RANKS_S = 300  # the spawned ranks' limit: ended and failed after it
 
 
 def _trainer_args(out, *extra):
@@ -52,7 +53,8 @@ def _assert_trees_close(got, want, path=""):
 def _beside_two_ranks(tmp_path, args, one_rank):
     """``tool_case(*args)`` on two spawned ranks while ``one_rank()`` runs here."""
     with ThreadPoolExecutor(1) as pool:
-        ranks = pool.submit(spawn, cases.tool_case, 2, "cpu", args, store_dir=str(tmp_path))
+        ranks = pool.submit(spawn, cases.tool_case, 2, "cpu", args, store_dir=str(tmp_path),
+                            timeout=RANKS_S)
         want = one_rank()
         ranks.result()
     return want

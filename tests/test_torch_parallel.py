@@ -44,6 +44,7 @@ from ctrlv_tpu_torch.parallel.launch import spawn
 import torch_dist_cases as cases
 
 torch.set_num_threads(1)
+RANKS_S = 300  # the spawned ranks' limit: ended and failed after it
 
 
 @pytest.mark.parametrize("world,n_frame", [(1, 1), (2, 1), (4, 1), (8, 1), (4, 2), (8, 2),
@@ -117,7 +118,8 @@ def _run(tmp_path, name, fn, *args, world=2, beside=None):
         fn(0, 1, out, *args)
     else:
         with ThreadPoolExecutor(1) as pool:
-            ranks = pool.submit(spawn, fn, world, "cpu", (out, *args), store_dir=str(tmp_path))
+            ranks = pool.submit(spawn, fn, world, "cpu", (out, *args), store_dir=str(tmp_path),
+                                timeout=RANKS_S)
             first = beside() if beside else None
             ranks.result()
     runs = [torch.load(os.path.join(out, f"rank{r}.pt")) for r in range(world)]

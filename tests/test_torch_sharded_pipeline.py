@@ -50,6 +50,7 @@ from test_torch_sampler import jax_draws
 import torch_dist_cases as cases
 
 torch.set_num_threads(1)
+RANKS_S = 300  # the spawned ranks' limit: ended and failed after it
 
 F, H, W = 3, 16, 16
 KW = dict(num_frames=F, num_inference_steps=2, min_guidance_scale=1.0,
@@ -81,7 +82,8 @@ def test_box2video_frame_sharded_matches_jax(tmp_path):
                     image_noise=noise, latents=lat, kwargs=KW), tmp_path / "box2video.pt")
     with ThreadPoolExecutor(1) as pool:  # the two ranks run in processes of their own
         ranks = pool.submit(spawn, cases.pipeline_case, 2, "cpu",
-                            (str(tmp_path), str(tmp_path / "two"), 1, 2), store_dir=str(tmp_path))
+                            (str(tmp_path), str(tmp_path / "two"), 1, 2), store_dir=str(tmp_path),
+                            timeout=RANKS_S)
         jax_pipe = JaxPipeline(m["unet"], m["unet_params"], m["ctrl"], m["ctrl_params"],
                                m["vae"], m["vae_params"], m["clip"], m["clip_params"])
         ref = np.asarray(jax_pipe(jnp.asarray(image), jnp.asarray(cond),
@@ -102,7 +104,7 @@ def test_box2video_frame_sharded_matches_jax(tmp_path):
 def test_overall_data_sharded_chooses_as_one_rank(tmp_path):
     with ThreadPoolExecutor(1) as pool:
         ranks = pool.submit(spawn, cases.overall_case, 2, "cpu", (str(tmp_path / "two"), 2, 1),
-                            store_dir=str(tmp_path))
+                            store_dir=str(tmp_path), timeout=RANKS_S)
         cases.overall_case(0, 1, str(tmp_path / "one"), 1, 1)
         ranks.result()
     (one,) = _outputs(tmp_path / "one", 1)
